@@ -27,6 +27,7 @@ CUDA device is available. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -44,12 +45,6 @@ PEAK_F32_OPS_PER_S = 67e12
 # 2 ops) for the value; 4 weight polynomials + 2×16 + 3×4 FMAs with the
 # derivatives
 BICUBIC_OPS = {"fwd": 2 * 10 + 2 * (16 + 4), "fwdgrad": 4 * 10 + 2 * (2 * 16 + 3 * 4)}
-
-BENCH_PROBLEM = dict(
-    voxel_size=0.004, image_size=(320, 240), num_frames=8, num_observations=5,
-    perturb_sdf=0.001, perturb_albedo=0.03,
-)
-BENCH_SOLVER = dict(lm_steps=8, cg_iters=12, schur_globals=True, cg_coeff_dtype="bfloat16")
 CHAINED_ITERS = 5
 
 
@@ -59,30 +54,6 @@ def log(*a):
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def setup_level(prob, device):
-    """Block layout, level statics, shift plans and block-dense params."""
-    from intrinsic3d_torch.grid.blocks import BlockLayout
-    from intrinsic3d_torch.refine.blockform import layout_plans, table_to_dense
-    from intrinsic3d_torch.refine.device_assembly import build_level_static
-
-    layout = BlockLayout.build(prob.grid)
-    st = build_level_static(layout, prob.grid, prob.topo, prob.voxel_sh, device=device)
-    sp, ap = layout_plans(layout, device)
-    params = prob.params._replace(
-        sdf=table_to_dense(layout, prob.params.sdf), albedo=table_to_dense(layout, prob.params.albedo)
-    )
-    cfg = prob.cfg
-    scal = (1.0, prob.grid.voxel_size, prob.grid.truncation, prob.thres_shell, cfg.occlusion_distance)
-    akw = dict(
-        num_obs=cfg.num_observations, width=int(prob.images.shape[2]), height=int(prob.images.shape[1]),
-        fix_poses=False, fix_intrinsics=False, fix_distortion=False, use_albedo=True,
-    )
-    import torch
-
-    lams = torch.tensor([cfg.lambda_g, 10.0, 10.0, cfg.lambda_a], device=device)
-    return layout, st, sp, ap, params, scal, lams, akw
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -132,6 +103,14 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def needed_bytes(images, m: int, n_act: int, out_bytes: int) -> int:
+    """Bytes a masked per-element sampler must move: every element's 4 B
+    `active` flag and its `out_bytes` of output, the three 4 B index or
+    coordinate arrays of the active elements only (an inactive element needs
+    nothing else), and the image stack once."""
+    return m * (4 + out_bytes) + n_act * 12 + images.numel() * images.element_size()
+
+
 def capture_first_call(module, name: str, store: dict):
     """Wrap `module.name` so its first call's arguments are kept (cloned)."""
     import torch
@@ -157,7 +136,6 @@ def check_kernels(captured: dict) -> list:
     images, fid, x, y, active = captured["bicubic_rows"]
     m = x.shape[0]
     n_act = int((active > 0).sum())
-    img_bytes = images.numel() * 4
     val_p, ddx_p, ddy_p = bicubic.bicubic_rows_plain(images, fid, x, y, active)
 
     xg, yg = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
@@ -182,7 +160,7 @@ def check_kernels(captured: dict) -> list:
         kernel = lambda: bicubic._launch_bicubic(images, fid, x, y, active, with_grad)  # noqa: E731
         ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
         plain_ms = graph_ms(lambda: bicubic.bicubic_rows_plain(images, fid, x, y, active))
-        b_ms, b_by = bound(m * 16 + m * (12 if with_grad else 4) + img_bytes, n_act * BICUBIC_OPS[tag])
+        b_ms, b_by = bound(needed_bytes(images, m, n_act, 12 if with_grad else 4), n_act * BICUBIC_OPS[tag])
         log(f"  bicubic_rows_{tag}: M={m} active={n_act} max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
             f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
         records.append(dict(
@@ -194,6 +172,7 @@ def check_kernels(captured: dict) -> list:
 
     depths, fid, yi, xi, active = captured["nearest_rows"]
     m = active.shape[0]
+    n_act = int((active > 0).sum())
     got = bicubic.nearest_rows(depths, fid, yi, xi, active)
     want = bicubic.nearest_rows_plain(depths, fid, yi, xi, active)
     torch.cuda.synchronize()
@@ -207,8 +186,8 @@ def check_kernels(captured: dict) -> list:
     ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
     plain_ms = graph_ms(lambda: bicubic.nearest_rows_plain(depths, fid, yi, xi, active))
     library_ms = graph_ms(lib)
-    b_ms, b_by = bound(m * 16 + m * 4 + depths.numel() * 4, 0)
-    log(f"  nearest_rows: M={m} active={int((active > 0).sum())} max_abs_err=0 ms={ms:.4f} "
+    b_ms, b_by = bound(needed_bytes(depths, m, n_act, 4), 0)
+    log(f"  nearest_rows: M={m} active={n_act} max_abs_err=0 ms={ms:.4f} "
         f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
     records.append(dict(
@@ -224,7 +203,6 @@ def small_problem_agrees() -> None:
     through the plain CPU path, at converged-solve settings."""
     import torch
 
-    from intrinsic3d_torch.refine.optimizer import fused_outer_step
     from intrinsic3d_torch.synthetic import build_sphere_problem
 
     traj = {}
@@ -233,13 +211,12 @@ def small_problem_agrees() -> None:
             voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2,
             perturb_sdf=0.002, perturb_albedo=0.05, device=device,
         )
-        _, st, sp, ap, p, scal, lams, akw = setup_level(prob, device)
-        mu, costs = torch.tensor(0.3, device=device), []
+        level = prob.level()
+        p, mu, costs = level.params, torch.tensor(0.3, device=device), []
         for _ in range(2):
-            p, c0, c1, mu, tries = fused_outer_step(
-                st, sp, ap, p, prob.depths, prob.images, *scal, lams, mu, **akw,
-                lm_steps=3, cg_iters=200, cg_eta=1e-8, schur_globals=True,
-                cg_coeff_dtype="float32", device=device,
+            p, c0, c1, mu, tries = level.outer_step(
+                p, prob.depths, prob.images, mu, lm_steps=3, cg_iters=200, cg_eta=1e-8,
+                schur_globals=True, cg_coeff_dtype="float32",
             )
             costs.append((float(c0), float(c1), tries))
         traj[device] = costs
@@ -266,13 +243,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from intrinsic3d_torch import observations
-    from intrinsic3d_torch.config import RefinementConfig
     from intrinsic3d_torch.ops import bicubic, build
     from intrinsic3d_torch.refine import residuals
-    from intrinsic3d_torch.refine.device_assembly import device_assembly
-    from intrinsic3d_torch.refine.optimizer import fused_outer_step
     from intrinsic3d_torch.refine.solver import gn_iteration
-    from intrinsic3d_torch.synthetic import build_sphere_problem
+    from intrinsic3d_torch.synthetic import BENCH_MU0, BENCH_PROBLEM, BENCH_SOLVER, build_sphere_problem
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -292,13 +266,9 @@ def main() -> int:
     # --- bench-scale problem and warm-up outer iteration (records kernel inputs)
     dev = "cuda"
     t0 = time.perf_counter()
-    cfg = RefinementConfig(
-        num_observations=5, occlusion_distance=0.02, fix_poses=False, fix_intrinsics=False,
-        fix_distortion=False,
-    )
-    prob = build_sphere_problem(**BENCH_PROBLEM, cfg=cfg, device=dev)
-    layout, st, sp, ap, params, scal, lams, akw = setup_level(prob, dev)
-    log(f"phase setup: num_voxels={prob.grid.num_voxels} num_blocks={layout.num_blocks} "
+    prob = build_sphere_problem(**BENCH_PROBLEM, device=dev)
+    level = prob.level()
+    log(f"phase setup: num_voxels={prob.grid.num_voxels} num_blocks={level.layout.num_blocks} "
         f"frames={prob.images.shape[0]} in {time.perf_counter() - t0:.1f}s")
 
     captured = {}
@@ -307,11 +277,10 @@ def main() -> int:
         capture_first_call(observations, "nearest_rows", captured),
     ]
     t0 = time.perf_counter()
-    basm, bmasks = device_assembly(st, sp, ap, params, prob.depths, prob.images, *scal, lams,
-                                   **{k: akw[k] for k in akw}, device=dev)
+    basm, bmasks = level.assemble(level.params, prob.depths, prob.images)
     n_active = int((basm.eg_w > 0).sum())
-    mu = torch.tensor(1e-4, device=dev)
-    p1, c0, c1, mu1, tries = gn_iteration(params, basm, bmasks, mu, **BENCH_SOLVER, device=dev)
+    mu = torch.tensor(BENCH_MU0, device=dev)
+    _, c0, c1, _, tries = gn_iteration(level.params, basm, bmasks, mu, **BENCH_SOLVER, device=dev)
     torch.cuda.synchronize()
     for r in restore:
         r()
@@ -329,17 +298,14 @@ def main() -> int:
     # --- phase 2: chained outer iterations; counts zeroed just before. One
     # discarded outer step first lets the allocator settle after the
     # kernel timings (their CUDA graphs hold private memory pools).
-    fused_outer_step(st, sp, ap, params, prob.depths, prob.images, *scal, lams,
-                     torch.tensor(1e-4, device=dev), **akw, **BENCH_SOLVER, device=dev)
+    level.outer_step(level.params, prob.depths, prob.images, torch.tensor(BENCH_MU0, device=dev), **BENCH_SOLVER)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bicubic.reset_launches()
-    p, mu, iter_s = params, torch.tensor(1e-4, device=dev), []
+    p, mu, iter_s = level.params, torch.tensor(BENCH_MU0, device=dev), []
     for it in range(CHAINED_ITERS):
         t0 = time.perf_counter()
-        p, c0, c1, mu, tries = fused_outer_step(
-            st, sp, ap, p, prob.depths, prob.images, *scal, lams, mu, **akw, **BENCH_SOLVER, device=dev,
-        )
+        p, c0, c1, mu, tries = level.outer_step(p, prob.depths, prob.images, mu, **BENCH_SOLVER)
         c0, c1 = float(c0), float(c1)
         torch.cuda.synchronize()
         iter_s.append(time.perf_counter() - t0)
@@ -351,8 +317,8 @@ def main() -> int:
             fail(f"outer iteration {it}: accepted cost {c1} above {c0}")
     launches = dict(bicubic.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"phase slice: {CHAINED_ITERS} outer iterations, mean {sum(iter_s) / len(iter_s):.3f}s "
-        f"(min {min(iter_s):.3f}s), launches {launches}, peak memory {peak_gb:.2f} GB")
+    log(f"phase slice: {CHAINED_ITERS} outer iterations, median {statistics.median(iter_s):.4f}s "
+        f"(min {min(iter_s):.4f}s, max {max(iter_s):.4f}s), launches {launches}, peak memory {peak_gb:.2f} GB")
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")

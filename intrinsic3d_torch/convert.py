@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid, pack_coords
 from intrinsic3d_torch.refine.blockform import BlockAssembly, layout_plans
@@ -18,15 +19,15 @@ from intrinsic3d_torch.refine.solver import Masks
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)  # a writable copy
+    return torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))  # a writable copy
 
 
-def params_from_numpy(sdf, albedo, poses, intr, dist, device="cpu") -> Params:
+def params_from_numpy(sdf, albedo, poses, intr, dist, device="cuda") -> Params:
     """Port `Params` (float32) from numpy fields (table or block-dense)."""
     return Params(*(_t(a, device) for a in (sdf, albedo, poses, intr, dist)))
 
 
-def masks_from_numpy(sdf, albedo, poses, intr, dist, device="cpu") -> Masks:
+def masks_from_numpy(sdf, albedo, poses, intr, dist, device="cuda") -> Masks:
     """Port `Masks` (float32 0/1) from numpy fields."""
     return Masks(*(_t(a, device) for a in (sdf, albedo, poses, intr, dist)))
 
@@ -50,7 +51,7 @@ def grid_from_numpy(voxel_size, coords, sdf, weight, color, albedo=None, sdf_ref
 def block_assembly_from_numpy(
     layout: BlockLayout,
     eg_w, eg_sh, eg_vpos, er_w, es_ref, es_w, ea_w, lam, images, pyr_scale, voxel_size,
-    device="cpu",
+    device="cuda",
 ) -> BlockAssembly:
     """Port `BlockAssembly` from the dense fields of a JAX `BlockAssembly`,
     with the port's own gather-form shift plans rebuilt from `layout`."""

@@ -12,9 +12,10 @@
 // 64-row image windows, one-hot row selects on the matrix unit with a bf16
 // hi/lo split) is not carried over: the taps here are exact float32 reads.
 //
-// Bound on the H100: memory traffic. Each element reads 16 B (fid, x, y,
-// active) and writes 4 B (value) or 12 B (value, ddx, ddy); the 16 image taps
-// of an active element hit L2, since the image stack (8 x 240 x 320 x 4 B =
+// Bound on the H100: memory traffic. Every element reads its 4 B `active`
+// flag and writes 4 B (value) or 12 B (value, ddx, ddy); only an active one
+// also reads 12 B (fid, x, y) and 16 image taps, which hit L2, since the
+// image stack (8 x 240 x 320 x 4 B =
 // 2.5 MB at the benchmark's scale) is far smaller than the 50 MB L2. About 40
 // (value) or 110 (with derivatives) float operations per active element are
 // far below the card's float32 rate.

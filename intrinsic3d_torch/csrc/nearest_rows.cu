@@ -8,10 +8,10 @@
 // float32 load, and the frame-uniform chunk contract and 64-row windows are
 // not carried over.
 //
-// Bound on the H100: memory traffic. Each element reads 16 B (fid, yi, xi,
-// active) and writes 4 B; the one image tap of an active element hits L2 (the
-// depth stack is 2.5 MB at the benchmark's scale against a 50 MB L2). There
-// is no arithmetic to speak of.
+// Bound on the H100: memory traffic. Every element reads its 4 B `active`
+// flag and writes 4 B; only an active one also reads 12 B (fid, yi, xi) and
+// its one image tap, which hits L2 (the depth stack is 2.5 MB at the
+// benchmark's scale against a 50 MB L2). There is no arithmetic to speak of.
 //
 // Design: one thread per element, per-element arrays read and written
 // coalesced; inactive elements read only their `active` flag.

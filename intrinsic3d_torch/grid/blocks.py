@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid, pack_coords, unpack_keys
 
 
@@ -125,8 +126,10 @@ class ShiftPlan:
         return int(hit[0])
 
 
-def build_shift_plan(layout: BlockLayout, offsets, device="cpu") -> ShiftPlan:
-    """Precompute the gather decomposition of `offsets` on `layout`."""
+def build_shift_plan(layout: BlockLayout, offsets, device="cuda") -> ShiftPlan:
+    """Precompute the gather decomposition of `offsets` on `layout`, its
+    index tables on `device`."""
+    dev = resolve_device(device)
     B = layout.block
     s = B**3
     offsets = np.asarray(offsets, np.int64).reshape(-1, 3)
@@ -154,8 +157,8 @@ def build_shift_plan(layout: BlockLayout, offsets, device="cpu") -> ShiftPlan:
     return ShiftPlan(
         offsets=offsets,
         dir_vecs=dir_vecs,
-        nbr=torch.as_tensor(np.ascontiguousarray(nbr), dtype=torch.int64, device=device),
-        lane_src=torch.as_tensor(lane_src, dtype=torch.int64, device=device),
+        nbr=torch.as_tensor(np.ascontiguousarray(nbr), dtype=torch.int64, device=dev),
+        lane_src=torch.as_tensor(lane_src, dtype=torch.int64, device=dev),
         block=B,
     )
 

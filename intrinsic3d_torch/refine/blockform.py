@@ -27,6 +27,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout, ShiftPlan, build_shift_plan, pad_flat
 from intrinsic3d_torch.grid.voxel_grid import EG_ALBEDO_OFFSETS, EG_SDF_OFFSETS
 from intrinsic3d_torch.refine.residuals import Params, eg_core
@@ -408,13 +409,14 @@ def dense_to_table(layout: BlockLayout, dense: torch.Tensor) -> torch.Tensor:
     return dense.reshape(-1)[torch.as_tensor(layout.vox_slot, device=dense.device)]
 
 
-def layout_plans(layout: BlockLayout, device="cpu") -> Tuple[ShiftPlan, ShiftPlan]:
+def layout_plans(layout: BlockLayout, device="cuda") -> Tuple[ShiftPlan, ShiftPlan]:
     """The sdf/albedo shift plans of `layout` on `device` (cached on the layout)."""
+    dev = resolve_device(device)
     cache = layout.__dict__.setdefault("_plan_cache", {})
-    key = str(torch.device(device))
+    key = str(dev)
     if key not in cache:
         cache[key] = (
-            build_shift_plan(layout, SDF_OFFSETS, device),
-            build_shift_plan(layout, ALB_OFFSETS, device),
+            build_shift_plan(layout, SDF_OFFSETS, dev),
+            build_shift_plan(layout, ALB_OFFSETS, dev),
         )
     return cache[key]

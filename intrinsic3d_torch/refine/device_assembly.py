@@ -121,7 +121,11 @@ def device_assembly(
     """One relinearization assembly over the dense frame-major elements.
     Every tensor argument must already lie on `device`."""
     dev = resolve_device(device)
-    check_on(dev, sdf=params.sdf, poses=params.poses, depths=depths, images=images, valid=st.valid)
+    check_on(
+        dev, sdf=params.sdf, poses=params.poses, depths=depths, images=images, valid=st.valid,
+        sdf_plan_nbr=sdf_plan.nbr, sdf_plan_lane_src=sdf_plan.lane_src,
+        alb_plan_nbr=alb_plan.nbr, alb_plan_lane_src=alb_plan.lane_src,
+    )
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     pyr_scale, voxel_size, truncation = f32(pyr_scale), f32(voxel_size), f32(truncation)
     thres_shell, occlusion_distance, lambdas = f32(thres_shell), f32(occlusion_distance), f32(lambdas)

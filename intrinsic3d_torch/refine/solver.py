@@ -97,7 +97,10 @@ def gn_iteration(
 
     Returns (params', cost_before, cost_after, mu', num_tries)."""
     dev = resolve_device(device)
-    check_on(dev, sdf=params.sdf, poses=params.poses, eg_w=asm.eg_w, mask=masks.sdf)
+    check_on(
+        dev, sdf=params.sdf, poses=params.poses, eg_w=asm.eg_w, mask=masks.sdf,
+        sdf_plan_nbr=asm.sdf_plan.nbr, alb_plan_nbr=asm.alb_plan.nbr,
+    )
     mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
     cost0, lin = blockform.linearize_block(params, asm)
     grad = blockform.jtv_block(lin, asm, (lin.r0_g, lin.r0_r, lin.r0_s, lin.r0_a))

@@ -20,6 +20,7 @@ from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
 from intrinsic3d_torch.mathutil import invert_pose, pose_matrix_to_vec
 from intrinsic3d_torch.refine.assembly import LevelTopology
+from intrinsic3d_torch.refine.optimizer import LevelSetup, prepare_level
 from intrinsic3d_torch.refine.residuals import Params
 
 
@@ -138,6 +139,28 @@ class SphereProblem:
     images: torch.Tensor  # [K, H, W]
     voxel_sh: np.ndarray
     thres_shell: float
+
+    def level(self, lambdas=None) -> LevelSetup:
+        """The problem as one refinement level (`refine.optimizer.prepare_level`)
+        on the device its tensors lie on. `lambdas` are the raw (λ_g, λ_r,
+        λ_s, λ_a); by default (λ_g, 10, 10, λ_a), as bench.py sets them."""
+        if lambdas is None:
+            lambdas = (self.cfg.lambda_g, 10.0, 10.0, self.cfg.lambda_a)
+        return prepare_level(
+            self.grid, self.topo, self.voxel_sh, self.params, self.cfg, self.thres_shell,
+            width=int(self.images.shape[2]), height=int(self.images.shape[1]), lambdas=lambdas,
+            device=self.images.device,
+        )
+
+
+# The outer iteration bench.py times (bench.py:55-103): its problem, solver
+# settings and starting damping
+BENCH_PROBLEM = dict(
+    voxel_size=0.004, image_size=(320, 240), num_frames=8, num_observations=5,
+    perturb_sdf=0.001, perturb_albedo=0.03,
+)
+BENCH_SOLVER = dict(lm_steps=8, cg_iters=12, schur_globals=True, cg_coeff_dtype="bfloat16")
+BENCH_MU0 = 1e-4
 
 
 def build_sphere_problem(

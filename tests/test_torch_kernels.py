@@ -84,10 +84,6 @@ def test_kernel_wrappers_refuse_bad_inputs_on_the_card(cuda_device):
 def test_outer_step_on_the_card_matches_the_cpu_path(cuda_device):
     """Two chained outer steps of a small problem: kernels on the card vs the
     plain versions on the CPU, at converged-solve settings (rtol 1e-3)."""
-    from intrinsic3d_torch.grid.blocks import BlockLayout
-    from intrinsic3d_torch.refine.blockform import layout_plans, table_to_dense
-    from intrinsic3d_torch.refine.device_assembly import build_level_static
-    from intrinsic3d_torch.refine.optimizer import fused_outer_step
     from intrinsic3d_torch.synthetic import build_sphere_problem
 
     traj = {}
@@ -96,22 +92,12 @@ def test_outer_step_on_the_card_matches_the_cpu_path(cuda_device):
             voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2,
             perturb_sdf=0.002, perturb_albedo=0.05, device=device,
         )
-        layout = BlockLayout.build(prob.grid)
-        st = build_level_static(layout, prob.grid, prob.topo, prob.voxel_sh, device=device)
-        sp, ap = layout_plans(layout, device)
-        p = prob.params._replace(
-            sdf=table_to_dense(layout, prob.params.sdf), albedo=table_to_dense(layout, prob.params.albedo)
-        )
-        cfg = prob.cfg
-        lams = torch.tensor([cfg.lambda_g, 10.0, 10.0, cfg.lambda_a], device=device)
-        mu, traj[device] = torch.tensor(0.3, device=device), []
+        level = prob.level()
+        p, mu, traj[device] = level.params, torch.tensor(0.3, device=device), []
         for _ in range(2):
-            p, c0, c1, mu, tries = fused_outer_step(
-                st, sp, ap, p, prob.depths, prob.images, 1.0, prob.grid.voxel_size,
-                prob.grid.truncation, prob.thres_shell, cfg.occlusion_distance, lams, mu,
-                num_obs=2, width=64, height=48, fix_poses=False, fix_intrinsics=False,
-                fix_distortion=False, use_albedo=True, lm_steps=3, cg_iters=200, cg_eta=1e-8,
-                schur_globals=True, cg_coeff_dtype="float32", device=device,
+            p, c0, c1, mu, tries = level.outer_step(
+                p, prob.depths, prob.images, mu, lm_steps=3, cg_iters=200, cg_eta=1e-8,
+                schur_globals=True, cg_coeff_dtype="float32",
             )
             traj[device].append((float(c0), float(c1), tries))
     assert [t[2] for t in traj["cuda"]] == [t[2] for t in traj["cpu"]]

@@ -91,8 +91,9 @@ def test_bicubic_rows_plain_matches_pallas():
         # the port's float32 taps against the float64 evaluation
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
         # against the Pallas sampler: its bf16 hi/lo split dots err by up to
-        # 2⁻¹⁶·Σ|w|·max|image| (1.8e-5 on these unit-range images, the port
-        # 8e-7: tools/parity_torch_port.py) — ROADMAP "Faults found in the port"
+        # 2⁻¹⁶·Σ|w|·max|image| against float64 (about 2e-5 on these
+        # unit-range images, where the port is held to 1e-6 above) — ROADMAP
+        # "Faults found in the port"
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=4e-5)
     # inactive elements are 0 with zero derivatives
     off = active == 0
@@ -250,7 +251,7 @@ def test_shift_plans_match_jax_and_are_adjoint(sphere_grid, block):
     np.testing.assert_array_equal(tl.vox_slot, jl.vox_slot)
     np.testing.assert_array_equal(tl.nbr27, jl.nbr27)
     rng = np.random.default_rng(25)
-    for jplan, tplan in zip(jbf.layout_plans(jl), blockform.layout_plans(tl)):
+    for jplan, tplan in zip(jbf.layout_plans(jl), blockform.layout_plans(tl, "cpu")):
         nb, s = tl.num_blocks, block**3
         field = pad_flat(_t(rng.normal(size=(nb, s)).astype(np.float32)))
         got = tplan.apply(field)

@@ -24,6 +24,7 @@ the port's objects from the JAX package's numpy fields). Tolerances:
   update μ·(1−(2ρ−1)³) multiplies the noise of the gain ratio ρ by ~8.)
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,8 +83,8 @@ def _close_in_norm(got, want, rtol=1e-4, elem=1e-3):
     np.testing.assert_allclose(got, want, rtol=elem, atol=elem * float(np.max(np.abs(want), initial=0.0)))
 
 
-def _port_params(p, device="cpu"):
-    return params_from_numpy(*(_np(a) for a in p), device=device)
+def _port_params(p):
+    return params_from_numpy(*(_np(a) for a in p), device="cpu")
 
 
 def _port_asm(layout, basm):
@@ -93,6 +94,7 @@ def _port_asm(layout, basm):
             "eg_w", "eg_sh", "eg_vpos", "er_w", "es_ref", "es_w", "ea_w", "lam", "images",
             "pyr_scale", "voxel_size",
         )),
+        device="cpu",
     )
 
 
@@ -134,16 +136,24 @@ def assembled():
     )
 
 
+@pytest.fixture(scope="module")
+def jax_lin(assembled):
+    """The JAX package's linearization of the assembled problem, jitted as
+    its solver runs it (eager dispatch of the interpreted Pallas calls costs
+    several times the compile)."""
+    return jax.jit(jbf.linearize_block)(assembled["bp"], assembled["basm"])
+
+
 def test_block_residuals_match(assembled):
     a = assembled
-    want = jbf.block_all_residuals(a["bp"], a["basm"])
+    want = jax.jit(jbf.block_all_residuals)(a["bp"], a["basm"])
     got = blockform.block_all_residuals(a["tparams"], a["tasm"])
     _close(got, want)
 
 
-def test_linearize_block_matches(assembled):
+def test_linearize_block_matches(assembled, jax_lin):
     a = assembled
-    c_j, lin_j = jbf.linearize_block(a["bp"], a["basm"])
+    c_j, lin_j = jax_lin
     c_t, lin_t = blockform.linearize_block(a["tparams"], a["tasm"])
     assert float(c_t) == pytest.approx(float(c_j), rel=1e-4)
     for name in blockform.BlockLin._fields:
@@ -152,12 +162,12 @@ def test_linearize_block_matches(assembled):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_products_match(assembled, dtype):
+def test_products_match(assembled, jax_lin, dtype):
     """J·v, Jᵀ·y, diag(JᵀJ), the global Gram and J_g/J_gᵀ against JAX on the
     same (possibly bf16-cast) coefficient fields: JAX's linearization, cast
     on both sides (bf16 rounding is exact, so both hold identical fields)."""
     a = assembled
-    _, lin_j = jbf.linearize_block(a["bp"], a["basm"])
+    _, lin_j = jax_lin
     lin_t = blockform.BlockLin(*(torch.as_tensor(np.array(f, np.float32)) for f in lin_j))
     if dtype != "float32":
         lin_j = jbf.cast_lin(lin_j, jnp.bfloat16)
@@ -165,7 +175,7 @@ def test_products_match(assembled, dtype):
     rng = np.random.default_rng(31)
     v_np = [rng.normal(size=np.shape(x)).astype(np.float32) for x in a["bp"]]
     v_j = a["bp"]._replace(**{f: jnp.asarray(x) for f, x in zip(a["bp"]._fields, v_np)})
-    v_t = params_from_numpy(*v_np)
+    v_t = params_from_numpy(*v_np, device="cpu")
 
     y_j = jbf.jv_block(lin_j, a["basm"], v_j)
     y_t = blockform.jv_block(lin_t, a["tasm"], v_t)
@@ -216,7 +226,7 @@ def test_device_assembly_matches(assembled, min_pose_obs):
     else:
         basm_j, bm_j = a["basm"], a["bm"]
     st = build_level_static(a["tl"], a["tgrid"], LevelTopology.build(a["tgrid"]), a["prob"].voxel_sh, device="cpu")
-    sp, ap = blockform.layout_plans(a["tl"])
+    sp, ap = blockform.layout_plans(a["tl"], "cpu")
     basm_t, bm_t = device_assembly(
         st, sp, ap, a["tparams"], torch.as_tensor(np.array(a["prob"].depths)),
         torch.as_tensor(np.array(a["prob"].images)), *a["scal"], torch.as_tensor(a["lams"]),
@@ -258,7 +268,7 @@ def schur_problem():
     jl = JBlockLayout.build(prob.grid)
     bp, basm, bm = jbf.to_block_problem(jl, prob.topo.coords, asm, masks, prob.params, num_obs=2)
     tl = BlockLayout.build(_port_grid(prob.grid))
-    return bp, basm, bm, _port_params(bp), _port_asm(tl, basm), masks_from_numpy(*(_np(m) for m in bm))
+    return bp, basm, bm, _port_params(bp), _port_asm(tl, basm), masks_from_numpy(*(_np(m) for m in bm), device="cpu")
 
 
 @pytest.mark.parametrize("schur", [True, False])

@@ -3,19 +3,22 @@ iterations (`refine.optimizer.fused_outer_step`) against the JAX package's
 outer step (`device_assembly` then `gn_iteration`, the composition its
 `_fused_outer_step` jits) from the same start, on the CPU.
 
-The trajectory is compared at converged-solve settings (200 CG steps,
-η = 1e-8, μ₀ = 0.3, as `tests/test_schur.py` does): there a step depends
-continuously on its inputs. At the production budget (6-12 CG steps,
-η = 0.1) on this small problem, the inexact solve amplifies the ~1e-5
-noise of the JAX sampler's bf16 hi/lo split, and the trajectories part by
-0.6-11% within three iterations (`tools/parity_torch_port.py`) — see
-ROADMAP "Faults found in the port".
-
-Tolerances on (cost0, cost1) per iteration, tries equal:
+At converged-solve settings (200 CG steps, η = 1e-8, μ₀ = 0.3, as
+`tests/test_schur.py` runs them) a step depends continuously on its inputs,
+and the trajectories are held to (cost0, cost1) per iteration, tries equal:
 - float32 coefficients: rtol 1e-3 (measured ≤ 3.3e-5);
 - bf16 coefficients: rtol 3e-2 — bf16 rounding of the coefficients
   compounds across relinearizations (the JAX package measured 3.1% drift
   at iteration 2 between its own paths); measured ≤ 9.5e-4 here.
+
+At the production budget (12 CG steps, η = 0.1, μ₀ = 1e-4, bf16
+coefficients, bench.py's settings) this small problem's trajectory is not a
+continuous function of its inputs: the PCG exit test, the LM acceptance and
+the re-assembly's observation gates are thresholds. There the port is held
+to the reference by a witness instead: the first outer iteration agrees
+(rtol 1e-4), and over three iterations the gap to the reference is within
+twice the spread that relative noise of 1e-7 — float32 rounding — on the
+port's own input images causes (`test_production_budget_gap_is_rounding_sized`).
 """
 
 import jax.numpy as jnp
@@ -30,12 +33,13 @@ from intrinsic3d_tpu.refine.device_assembly import device_assembly as j_device_a
 from intrinsic3d_tpu.refine.solver import gn_iteration as j_gn_iteration
 from intrinsic3d_tpu.synthetic import build_sphere_problem as j_build_sphere_problem
 
-from intrinsic3d_torch.grid.blocks import BlockLayout
-from intrinsic3d_torch.refine.blockform import layout_plans, table_to_dense
+from intrinsic3d_torch.convert import params_from_numpy
+from intrinsic3d_torch.grid.blocks import BlockLayout, build_shift_plan
+from intrinsic3d_torch.refine.blockform import SDF_OFFSETS, layout_plans
 from intrinsic3d_torch.refine.device_assembly import build_level_static, device_assembly
 from intrinsic3d_torch.refine.optimizer import fused_outer_step
 from intrinsic3d_torch.refine.solver import gn_iteration
-from intrinsic3d_torch.synthetic import build_sphere_problem
+from intrinsic3d_torch.synthetic import BENCH_MU0, build_sphere_problem
 
 PROBLEM = dict(
     voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2,
@@ -43,6 +47,8 @@ PROBLEM = dict(
 )
 SOLVER = dict(lm_steps=3, cg_iters=200, cg_eta=1e-8, schur_globals=True)
 MU0 = 0.3
+PRODUCTION = dict(lm_steps=8, cg_iters=12, cg_eta=0.1, schur_globals=True, cg_coeff_dtype="bfloat16")
+ROUNDING_NOISE = 1e-7  # relative, on the input images
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,7 +79,7 @@ def test_sphere_problem_matches_jax(problems):
     assert (tp.cam.fx, tp.cam.cx, tp.cam.width) == (float(jp.cam.fx), float(jp.cam.cx), jp.cam.width)
 
 
-def _jax_trajectory(jp, dtype, iters=3):
+def _jax_trajectory(jp, mu0, iters=3, **solver):
     jl = JBlockLayout.build(jp.grid)
     st = j_build_level_static(jl, jp.grid, jp.topo, jp.voxel_sh)
     sp, ap = jbf.layout_plans(jl)
@@ -83,47 +89,63 @@ def _jax_trajectory(jp, dtype, iters=3):
     cfg = jp.cfg
     scal = (1.0, jp.grid.voxel_size, jp.grid.truncation, jp.thres_shell, cfg.occlusion_distance)
     lams = jnp.asarray([cfg.lambda_g, 10.0, 10.0, cfg.lambda_a], jnp.float32)
-    mu, out = jnp.float32(MU0), []
+    mu, out = jnp.float32(mu0), []
     for _ in range(iters):
         basm, bm = j_device_assembly(
             st, sp, ap, p, jp.depths, jp.images, *(jnp.float32(v) for v in scal), lams,
             num_obs=2, width=64, height=48,
         )
-        p, c0, c1, mu, tries = j_gn_iteration(p, basm, bm, mu, cg_coeff_dtype=dtype, **SOLVER)
+        p, c0, c1, mu, tries = j_gn_iteration(p, basm, bm, mu, **solver)
         out.append((float(c0), float(c1), int(tries)))
     return out
 
 
-def _port_setup(tp):
-    layout = BlockLayout.build(tp.grid)
-    st = build_level_static(layout, tp.grid, tp.topo, tp.voxel_sh, device="cpu")
-    sp, ap = layout_plans(layout, "cpu")
-    p = tp.params._replace(
-        sdf=table_to_dense(layout, tp.params.sdf), albedo=table_to_dense(layout, tp.params.albedo)
-    )
-    cfg = tp.cfg
-    scal = (1.0, tp.grid.voxel_size, tp.grid.truncation, tp.thres_shell, cfg.occlusion_distance)
-    lams = torch.tensor([cfg.lambda_g, 10.0, 10.0, cfg.lambda_a])
-    return st, sp, ap, p, scal, lams
+def _port_trajectory(tp, mu0, images=None, iters=3, **solver):
+    level = tp.level()
+    images = tp.images if images is None else images
+    p, mu, out = level.params, torch.tensor(mu0), []
+    for _ in range(iters):
+        p, c0, c1, mu, tries = level.outer_step(p, tp.depths, images, mu, **solver)
+        assert float(c1) < float(c0)
+        out.append((float(c0), float(c1), tries))
+    assert all(torch.isfinite(f).all() for f in p)
+    return out
+
+
+def _max_rel(got, want):
+    """Largest relative difference of (cost0, cost1) over the iterations."""
+    return max(abs(g / w - 1.0) for gi, wi in zip(got, want) for g, w in zip(gi[:2], wi[:2]))
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-3), ("bfloat16", 3e-2)])
 def test_chained_outer_steps_match_jax(problems, dtype, rtol):
     jp, tp = problems
-    want = _jax_trajectory(jp, dtype)
-    st, sp, ap, p, scal, lams = _port_setup(tp)
-    mu, got = torch.tensor(MU0), []
-    for _ in range(3):
-        p, c0, c1, mu, tries = fused_outer_step(
-            st, sp, ap, p, tp.depths, tp.images, *scal, lams, mu,
-            num_obs=2, width=64, height=48, fix_poses=False, fix_intrinsics=False,
-            fix_distortion=False, use_albedo=True, cg_coeff_dtype=dtype, device="cpu", **SOLVER,
-        )
-        assert float(c1) < float(c0)
-        got.append((float(c0), float(c1), tries))
+    want = _jax_trajectory(jp, MU0, cg_coeff_dtype=dtype, **SOLVER)
+    got = _port_trajectory(tp, MU0, cg_coeff_dtype=dtype, **SOLVER)
     assert [g[2] for g in got] == [w[2] for w in want]
     np.testing.assert_allclose([g[:2] for g in got], [w[:2] for w in want], rtol=rtol)
-    assert all(torch.isfinite(f).all() for f in p)
+
+
+def test_production_budget_gap_is_rounding_sized(problems):
+    """bench.py's solver settings: the first outer iteration matches the
+    reference, and the three-iteration gap to it is no larger than twice the
+    spread the port's own trajectory shows under float32-rounding-sized
+    noise on its input images (three noise draws)."""
+    jp, tp = problems
+    want = _jax_trajectory(jp, BENCH_MU0, **PRODUCTION)
+    got = _port_trajectory(tp, BENCH_MU0, **PRODUCTION)
+    assert got[0][2] == want[0][2]
+    np.testing.assert_allclose(got[0][:2], want[0][:2], rtol=1e-4)
+    gap = _max_rel(got, want)
+    spread = 0.0
+    for seed in range(3):
+        noise = np.random.default_rng(seed).standard_normal(tuple(tp.images.shape)).astype(np.float32)
+        noisy = tp.images * (1.0 + ROUNDING_NOISE * torch.as_tensor(noise))
+        spread = max(spread, _max_rel(_port_trajectory(tp, BENCH_MU0, images=noisy, **PRODUCTION), got))
+    print(f"production budget: gap to the reference {gap:.3e}, spread under 1e-7 image noise {spread:.3e}; "
+          f"reference {want}, port {got}")
+    assert spread > 1e-3  # the trajectory is that sensitive
+    assert gap <= 2.0 * spread, (gap, spread)
 
 
 def test_entry_points_default_to_the_card(problems, monkeypatch):
@@ -131,16 +153,24 @@ def test_entry_points_default_to_the_card(problems, monkeypatch):
     when there is none — never a silent CPU fallback."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tp = problems
-    st, sp, ap, p, scal, lams = _port_setup(tp)
+    level = tp.level()
+    st, sp, ap, p = level.static, level.sdf_plan, level.alb_plan, level.params
+    scal, lams = level.scalars, level.lambdas
     layout = BlockLayout.build(tp.grid)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_sphere_problem(**PROBLEM)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_level_static(layout, tp.grid, tp.topo, tp.voxel_sh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layout_plans(layout)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_shift_plan(layout, SDF_OFFSETS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy(*(f.numpy() for f in tp.params))
     akw = dict(num_obs=2, width=64, height=48)
     with pytest.raises(RuntimeError, match="CUDA"):
         device_assembly(st, sp, ap, p, tp.depths, tp.images, *scal, lams, **akw)
-    basm, bm = device_assembly(st, sp, ap, p, tp.depths, tp.images, *scal, lams, **akw, device="cpu")
+    basm, bm = level.assemble(p, tp.depths, tp.images)
     with pytest.raises(RuntimeError, match="CUDA"):
         gn_iteration(p, basm, bm, 1e-4)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -155,6 +185,9 @@ def test_cpu_tensors_on_a_cuda_call_are_refused(problems, monkeypatch):
     the plain versions."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     _, tp = problems
-    st, sp, ap, p, scal, lams = _port_setup(tp)
+    level = tp.level()
     with pytest.raises(ValueError, match="expected cuda"):
-        device_assembly(st, sp, ap, p, tp.depths, tp.images, *scal, lams, num_obs=2, width=64, height=48)
+        device_assembly(
+            level.static, level.sdf_plan, level.alb_plan, level.params, tp.depths, tp.images,
+            *level.scalars, level.lambdas, num_obs=2, width=64, height=48,
+        )

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one refinement outer step of the PyTorch port goes, on
-one GPU, at the benchmark's scale (the configuration of `chip_smoke.py`,
-which is bench.py's).
+one GPU, at the benchmark's scale (bench.py's configuration,
+`intrinsic3d_torch.synthetic.BENCH_*`).
 
-    python3 tools/profile_torch_step.py [--reps 3]
+    python3 tools/profile_torch_step.py [--reps 5]
 
 Prints, per phase, the host wall clock around work that ends in a
-synchronize (mean over `--reps` runs after a warm-up):
+synchronize (median over `--reps` runs after a warm-up):
 
 - `device_assembly` alone;
 - `linearize_block` alone (the E_g reverse pass);
@@ -25,6 +25,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import sys
 import time
@@ -44,12 +45,12 @@ def timed(fn, reps):
         out = fn()
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
-    return out, sum(ts) / len(ts)
+    return out, statistics.median(ts)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     import torch
 
@@ -59,20 +60,13 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import BENCH_PROBLEM, BENCH_SOLVER, setup_level
-    from intrinsic3d_torch.config import RefinementConfig
     from intrinsic3d_torch.refine import blockform, solver
-    from intrinsic3d_torch.refine.device_assembly import device_assembly
-    from intrinsic3d_torch.refine.optimizer import fused_outer_step
-    from intrinsic3d_torch.synthetic import build_sphere_problem
+    from intrinsic3d_torch.synthetic import BENCH_MU0, BENCH_PROBLEM, BENCH_SOLVER, build_sphere_problem
 
-    cfg = RefinementConfig(
-        num_observations=5, occlusion_distance=0.02, fix_poses=False, fix_intrinsics=False,
-        fix_distortion=False,
-    )
-    prob = build_sphere_problem(**BENCH_PROBLEM, cfg=cfg, device="cuda")
-    _, st, sp, ap_, params, scal, lams, akw = setup_level(prob, "cuda")
-    mu = torch.tensor(1e-4, device="cuda")
+    prob = build_sphere_problem(**BENCH_PROBLEM, device="cuda")
+    level = prob.level()
+    params = level.params
+    mu = torch.tensor(BENCH_MU0, device="cuda")
 
     cg_steps = []
     pcg = solver._pcg
@@ -84,10 +78,7 @@ def main() -> int:
 
     solver._pcg = counting_pcg
 
-    def assemble():
-        return device_assembly(st, sp, ap_, params, prob.depths, prob.images, *scal, lams, **akw, device="cuda")
-
-    (basm, bm), t_asm = timed(assemble, args.reps)
+    (basm, bm), t_asm = timed(lambda: level.assemble(params, prob.depths, prob.images), args.reps)
     _, t_lin = timed(lambda: blockform.linearize_block(params, basm), args.reps)
     _, lin = blockform.linearize_block(params, basm)
     _, t_gd = timed(
@@ -103,8 +94,7 @@ def main() -> int:
     tries = out[4]
 
     def outer():
-        return fused_outer_step(st, sp, ap_, params, prob.depths, prob.images, *scal, lams, mu,
-                                **akw, **BENCH_SOLVER, device="cuda")
+        return level.outer_step(params, prob.depths, prob.images, mu, **BENCH_SOLVER)
 
     _, t_outer = timed(outer, args.reps)
     solver._pcg = pcg
