@@ -3,20 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `intrinsic3d_torch/csrc/` with nvcc,
-then:
+Builds the port's CUDA kernels from `intrinsic3d_torch/csrc/` with nvcc
+(one process per source, all at once), then drives the port's two paths.
 
-1. drives the refinement outer step once at the benchmark's scale (bench.py:
-   voxel 0.004 m, 320x240, 8 keyframes, 142,256 voxels) as a warm-up,
-   recording the inputs the path hands each kernel;
-2. holds every kernel against its plain PyTorch version on those inputs and
-   times kernel, plain version and (where one exists) the one PyTorch call
-   computing the same function;
+The refinement outer step:
+1. drives it once at the benchmark's scale (bench.py: voxel 0.004 m,
+   320x240, 8 keyframes, 142,256 voxels) as a warm-up, recording the inputs
+   the path hands each kernel;
+2. holds every kernel of the path against its plain PyTorch version on those
+   inputs and times kernel, plain version and (where one exists) the one
+   PyTorch call computing the same function;
 3. zeroes the launch counters, drives 5 chained outer iterations through
    `refine.optimizer.fused_outer_step`, and reads the counters (every kernel
    of the path must have run);
 4. checks the result on a small problem against the port's plain CPU path
    (which the repo's tests hold against the JAX package).
+
+Keyframe selection and TSDF fusion (stages 1 and 2 of bench_pipeline.py: 30
+frames at 640x480, voxel 0.004 m, clip bounds +-2.5 radius):
+5. builds the orbit dataset on the host, runs `app_keyframes.run` and
+   `app_fusion.run` on the card once as a warm-up (recording the dense
+   distance-transform kernel's inputs), then again with the counters zeroed
+   just before and read just after, and holds the fused SDF to the analytic
+   sphere;
+6. holds the distance-transform kernel against its plain version on the
+   path's window and on a 411x211x501 field (the Lion dataset's crop volume
+   at 4 mm), and the masked sampler's forward and backward (on no path) on
+   the sampler inputs of step 1;
+7. checks a small fusion problem on the card against the CPU path.
 
 Prints the card (`nvidia-smi` name and power limit), one line per phase, a
 JSON `{"kernels": [...]}` line, and as the last line
@@ -43,8 +57,22 @@ PEAK_F32_OPS_PER_S = 67e12
 # float operations per ACTIVE element, counted from csrc/bicubic_rows.cu:
 # 2×(weight polynomials, ~10 ops each) + 16 tap FMAs + 4 row FMAs (an FMA is
 # 2 ops) for the value; 4 weight polynomials + 2×16 + 3×4 FMAs with the
-# derivatives
-BICUBIC_OPS = {"fwd": 2 * 10 + 2 * (16 + 4), "fwdgrad": 4 * 10 + 2 * (2 * 16 + 3 * 4)}
+# derivatives; the backward drops the value's 4 row FMAs and adds 2 products
+# by g
+BICUBIC_OPS = {
+    "fwd": 2 * 10 + 2 * (16 + 4),
+    "fwdgrad": 4 * 10 + 2 * (2 * 16 + 3 * 4),
+    "bwd": 4 * 10 + 2 * (2 * 16 + 2 * 4) + 2,
+}
+# operations per neighbour of a valid voxel in one sweep, counted from
+# csrc/correct_sdf_dense.cu: the weight test, the sign test of the
+# neighbour, the sign comparison, the candidate's add, its |.| and the
+# comparison with the best (index arithmetic and bounds checks not counted)
+DT_OPS_PER_NEIGHBOUR = 6
+DT_ITERS = 10
+# the reference's Lion crop volume at 4 mm (BASELINE.md): x in [-0.09, 1.55],
+# y in [-0.58, 0.26], z in [0, 2.0]
+DT_FIELD = (411, 211, 501)
 CHAINED_ITERS = 5
 
 
@@ -103,12 +131,12 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def needed_bytes(images, m: int, n_act: int, out_bytes: int) -> int:
+def needed_bytes(images, m: int, n_act: int, out_bytes: int, act_in_bytes: int = 12) -> int:
     """Bytes a masked per-element sampler must move: every element's 4 B
-    `active` flag and its `out_bytes` of output, the three 4 B index or
-    coordinate arrays of the active elements only (an inactive element needs
-    nothing else), and the image stack once."""
-    return m * (4 + out_bytes) + n_act * 12 + images.numel() * images.element_size()
+    `active` flag and its `out_bytes` of output, the `act_in_bytes` of index,
+    coordinate (and cotangent) arrays of the active elements only (an
+    inactive element needs nothing else), and the image stack once."""
+    return m * (4 + out_bytes) + n_act * act_in_bytes + images.numel() * images.element_size()
 
 
 def capture_first_call(module, name: str, store: dict):
@@ -226,6 +254,209 @@ def small_problem_agrees() -> None:
             fail(f"small-problem trajectory on the card {traj['cuda']} differs from the CPU path {traj['cpu']}")
 
 
+def check_sampler_sample(rows_inputs) -> list:
+    """The masked sampler's second entry, `bicubic_sample` (K4a forward,
+    K4b backward; on no path), against its plain version's value and
+    autograd gradient, on the refinement path's sampler inputs."""
+    import torch
+
+    from intrinsic3d_torch.ops import bicubic
+
+    images, fid, x, y, active = rows_inputs
+    m = x.shape[0]
+    n_act = int((active > 0).sum())
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    g = torch.randn(m, generator=gen, device=x.device)
+    xk, yk = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    out = bicubic.bicubic_sample(images, fid, xk, yk, active)
+    gx, gy = torch.autograd.grad(out, (xk, yk), grad_outputs=g)
+    xp, yp = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    want = bicubic.bicubic_sample_plain(images, fid, xp, yp, active)
+    wx, wy = torch.autograd.grad(want, (xp, yp), grad_outputs=g)
+    want = want.detach()
+    torch.cuda.synchronize()
+    records = []
+    for tag, pairs in (("fwd", [(out.detach(), want)]), ("bwd", [(gx, wx), (gy, wy)])):
+        for got, ref in pairs:
+            if not torch.isfinite(got).all():
+                fail(f"bicubic_sample_{tag}: non-finite output")
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+        abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+        if tag == "fwd":
+            kernel = lambda: bicubic._launch_bicubic(  # noqa: E731
+                images, fid, x, y, active, False, counter="bicubic_sample_fwd")
+            plain = lambda: bicubic.bicubic_sample_plain(images, fid, x, y, active)  # noqa: E731
+            nbytes = needed_bytes(images, m, n_act, 4)
+        else:
+            kernel = lambda: bicubic._launch_bicubic_bwd(images, fid, x, y, active, g)  # noqa: E731
+
+            def plain():
+                xq, yq = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+                return torch.autograd.grad(bicubic.bicubic_sample_plain(images, fid, xq, yq, active), (xq, yq), g)
+
+            nbytes = needed_bytes(images, m, n_act, 8, act_in_bytes=16)
+        ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+        b_ms, b_by = bound(nbytes, n_act * BICUBIC_OPS[tag])
+        log(f"  bicubic_sample_{tag}: M={m} active={n_act} max_abs_err={abs_err:.3e} ms={ms:.4f} "
+            f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); on no path")
+        records.append(dict(
+            name=f"bicubic_sample_{tag}", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
+            replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:" + ("189" if tag == "fwd" else "214"),
+            max_abs_err=abs_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, on_path=False,
+        ))
+    return records
+
+
+def sphere_band_field(shape, voxel: float, seed: int):
+    """A dense sphere SDF truncated at 5 voxels plus seeded noise, made on
+    the card: weight > 0 in the band and 0 elsewhere, so the sweeps have
+    work."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ax = [(torch.arange(n, device=dev, dtype=torch.float32) - 0.5 * n) * voxel for n in shape]
+    r = 0.35 * min(shape) * voxel
+    true = torch.sqrt(ax[0][:, None, None] ** 2 + ax[1][None, :, None] ** 2 + ax[2][None, None, :] ** 2) - r
+    band = true.abs() < 5 * voxel
+    noise = torch.randn(shape, generator=gen, device=dev) * (0.5 * voxel)
+    sdf = torch.where(band, true + noise, torch.zeros_like(true))
+    weight = torch.where(band, 0.5 + 2.5 * torch.rand(shape, generator=gen, device=dev), torch.zeros_like(true))
+    return sdf.contiguous(), weight.contiguous()
+
+
+def check_distance_transform(window_inputs) -> dict:
+    """K3 against its plain version on the fusion path's dense window and on
+    the DT_FIELD sphere band: equal sdf within atol 1e-6 and equal weight.
+    Returns the record at the path's window, with the field's numbers under
+    `field`."""
+    import torch
+
+    from intrinsic3d_torch.ops import distance_transform as dt
+
+    sdf, weight, voxel, iters = window_inputs
+    out = {}
+    for tag, (s_in, w_in, vs) in (("window", (sdf, weight, voxel)),
+                                  ("field", (*sphere_band_field(DT_FIELD, 0.004, 11), 0.004))):
+        got_s, got_w = dt.correct_sdf_dense(s_in, w_in, vs, iters)
+        want_s, want_w = dt.correct_sdf_dense_plain(s_in, w_in, vs, iters)
+        torch.cuda.synchronize()
+        err = float((got_s - want_s).abs().max())
+        if err > 1e-6 or not torch.equal(got_w, want_w):
+            fail(f"correct_sdf_dense ({tag}) differs from its plain version: max sdf err {err:.3e}, "
+                 f"weights equal {torch.equal(got_w, want_w)}")
+        changed = int((got_s != s_in).sum())
+        n = s_in.numel()
+        n_valid = int((w_in > 0).sum())
+        kernel = lambda: dt._launch(s_in, w_in, vs, iters)  # noqa: E731
+        reps = 20 if tag == "window" else 5
+        ms, call_ms = graph_ms(kernel, reps), cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(lambda: dt.correct_sdf_dense_plain(s_in, w_in, vs, iters), 3)
+        b_ms, b_by = bound(16 * n, iters * 26 * DT_OPS_PER_NEIGHBOUR * n_valid)
+        log(f"  correct_sdf_dense ({tag}): dims={tuple(s_in.shape)} voxels={n} valid={n_valid} "
+            f"changed={changed} iters={iters} max_abs_err={err:.3e} ms={ms:.4f} call_ms={call_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) pct_of_bound={100 * b_ms / ms:.1f}")
+        out[tag] = dict(dims=list(s_in.shape), max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+        del got_s, got_w, want_s, want_w
+    rec = dict(name="correct_sdf_dense", route="cuda", source="intrinsic3d_torch/csrc/correct_sdf_dense.cu",
+               replaces="intrinsic3d_tpu/ops/pallas/distance_transform.py:179", library_ms=None,
+               **{k: out["window"][k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+    rec["field"] = out["field"]
+    return rec
+
+
+def fused_sdf_error(grid, center, radius: float):
+    """Median and p90 of |fused − analytic sdf| on seen voxels with
+    |analytic| < truncation/2 (the bar of tests/test_grid.py), and their count."""
+    import numpy as np
+
+    true = np.linalg.norm(grid.voxel_to_world() - np.asarray(center), axis=-1) - radius
+    near = (grid.weight > 0) & (np.abs(true) < grid.truncation * 0.5)
+    err = np.abs(grid.sdf[near] - true[near])
+    return float(np.median(err)), float(np.percentile(err, 90)), int(near.sum())
+
+
+def fusion_phase() -> tuple:
+    """Stages 1 and 2 of bench_pipeline.py on the card: a warm-up run that
+    records the dense distance-transform kernel's inputs, then the run read
+    for launches and times. Returns (launches, K3 window inputs)."""
+    import torch
+
+    from intrinsic3d_torch.apps import app_fusion, app_keyframes
+    from intrinsic3d_torch.grid import algorithms
+    from intrinsic3d_torch.ops import build
+    from intrinsic3d_torch.synthetic import PIPELINE_DATASET, PIPELINE_SETTINGS, build_orbit_dataset, pipeline_configs
+
+    t0 = time.perf_counter()
+    sensor = build_orbit_dataset(**PIPELINE_DATASET)
+    dataset_s = time.perf_counter() - t0
+    center, radius = PIPELINE_DATASET["center"], PIPELINE_DATASET["radius"]
+    kcfg, fcfg = pipeline_configs(center=center, radius=radius, **PIPELINE_SETTINGS)
+
+    captured = {}
+    restore = capture_first_call(algorithms, "correct_sdf_dense", captured)
+    app_keyframes.run(sensor, kcfg)
+    app_fusion.run(sensor, fcfg)
+    torch.cuda.synchronize()
+    restore()
+    if "correct_sdf_dense" not in captured:
+        fail("the fusion warm-up did not take the dense distance-transform route")
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    sel = app_keyframes.run(sensor, kcfg)
+    torch.cuda.synchronize()
+    keyframes_s = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    grid = app_fusion.run(sensor, fcfg, stats=stats)
+    fusion_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    win = captured["correct_sdf_dense"]
+    log(f"phase fusion: frames={sensor.num_frames} {sensor.depth_cam.width}x{sensor.depth_cam.height} "
+        f"keyframes selected {sel.count()} {sel.keyframe_ids()}; dataset {dataset_s:.2f}s (host), "
+        f"keyframes {keyframes_s:.4f}s, fusion {fusion_s:.4f}s")
+    log("  fusion sub-phases (s): " + " ".join(f"{k}={stats[k]:.4f}" for k in app_fusion.PHASES))
+    log(f"  bitmap dims {stats['dims']} ({int(torch.tensor(stats['dims']).prod())} voxels), allocated "
+        f"{stats['allocated']}, kept {stats['kept']}, K3 window dims {tuple(win[0].shape)}, "
+        f"launches {launches}")
+    if launches["correct_sdf_dense"] == 0:
+        fail("the fusion path never launched the distance-transform kernel")
+    med, p90, n_near = fused_sdf_error(grid, center, radius)
+    log(f"  fused sdf vs the analytic sphere on {n_near} near-surface voxels: median {med:.6f} m, "
+        f"p90 {p90:.6f} m (bar: < {fcfg.voxel_size} m, < {2.5 * fcfg.voxel_size} m)")
+    if not (n_near > 1000 and med < fcfg.voxel_size and p90 < 2.5 * fcfg.voxel_size):
+        fail("the fused SDF misses the analytic sphere's bar")
+    return launches, win
+
+
+def small_fusion_agrees() -> None:
+    """A small fusion problem (4 orbit frames, 64x48, clip bounds) on the
+    card (dense route, K3) and on the CPU (the gather table): the same voxel
+    set, sdf within 1e-6, weight rtol 1e-5, color within 1e-3."""
+    import numpy as np
+
+    from intrinsic3d_torch.apps import app_fusion
+    from intrinsic3d_torch.synthetic import DEFAULT_CENTER, build_orbit_dataset, pipeline_configs
+
+    sensor = build_orbit_dataset(4, 64, 48, center=DEFAULT_CENTER, radius=0.12)
+    _, cfg = pipeline_configs(center=DEFAULT_CENTER, radius=0.12)
+    card = app_fusion.run(sensor, cfg, device="cuda")
+    cpu = app_fusion.run(sensor, cfg, device="cpu")
+    if card.num_voxels < 500 or not np.array_equal(card.coords, cpu.coords):
+        fail(f"small fusion: voxel sets differ ({card.num_voxels} on the card, {cpu.num_voxels} on the CPU)")
+    errs = (float(np.abs(card.sdf - cpu.sdf).max()),
+            float(np.abs(card.weight - cpu.weight).max() / np.abs(cpu.weight).max()),
+            float(np.abs(card.color - cpu.color).max()))
+    log(f"  small fusion: {card.num_voxels} voxels on both; max |d sdf| {errs[0]:.3e}, "
+        f"max |d weight|/max weight {errs[1]:.3e}, max |d color| {errs[2]:.3e}")
+    if errs[0] > 1e-6 or errs[1] > 1e-5 or errs[2] > 1e-3:
+        fail("small fusion: the card's fields differ from the CPU path's")
+
+
 def main() -> int:
     try:
         import torch
@@ -243,7 +474,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from intrinsic3d_torch import observations
-    from intrinsic3d_torch.ops import bicubic, build
+    from intrinsic3d_torch.ops import build
     from intrinsic3d_torch.refine import residuals
     from intrinsic3d_torch.refine.solver import gn_iteration
     from intrinsic3d_torch.synthetic import BENCH_MU0, BENCH_PROBLEM, BENCH_SOLVER, build_sphere_problem
@@ -292,8 +523,9 @@ def main() -> int:
 
     # --- phase 1: kernels against their plain versions on the path's inputs
     records = check_kernels(captured)
+    rows_inputs = captured["bicubic_rows"]
     del captured
-    log("phase kernels: every kernel agrees with its plain version")
+    log("phase kernels: every kernel of the refinement path agrees with its plain version")
 
     # --- phase 2: chained outer iterations; counts zeroed just before. One
     # discarded outer step first lets the allocator settle after the
@@ -301,7 +533,7 @@ def main() -> int:
     level.outer_step(level.params, prob.depths, prob.images, torch.tensor(BENCH_MU0, device=dev), **BENCH_SOLVER)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bicubic.reset_launches()
+    build.reset_launches()
     p, mu, iter_s = level.params, torch.tensor(BENCH_MU0, device=dev), []
     for it in range(CHAINED_ITERS):
         t0 = time.perf_counter()
@@ -315,21 +547,46 @@ def main() -> int:
             fail(f"non-finite values at outer iteration {it}")
         if c1 > c0:
             fail(f"outer iteration {it}: accepted cost {c1} above {c0}")
-    launches = dict(bicubic.LAUNCHES)
+    launches = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"phase slice: {CHAINED_ITERS} outer iterations, median {statistics.median(iter_s):.4f}s "
         f"(min {min(iter_s):.4f}s, max {max(iter_s):.4f}s), launches {launches}, peak memory {peak_gb:.2f} GB")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was never launched on the main path")
     for r in records:
         r["launches"] = launches[r["name"]]
         r["status"] = "ok"
+        if r["launches"] == 0:
+            fail(f"kernel {r['name']} was never launched on the refinement path")
 
     # --- phase 3: the result on a small problem against the plain CPU path
     small_problem_agrees()
     log("phase check: the card's trajectory matches the plain CPU path")
+    del prob, level, p
 
+    # --- phase 4: keyframes and fusion at bench_pipeline scale; counts zeroed
+    # just before the measured run and read just after
+    fusion_launches, window_inputs = fusion_phase()
+    for name, n in fusion_launches.items():
+        if name != "correct_sdf_dense" and n != 0:
+            fail(f"kernel {name} launched {n} times on the fusion path, which has none of it")
+
+    # --- phase 5: the distance-transform kernel and the sampler's second entry
+    # against their plain versions
+    rec = check_distance_transform(window_inputs)
+    rec.update(launches=fusion_launches["correct_sdf_dense"], status="ok")
+    records.append(rec)
+    del window_inputs
+    for rec in check_sampler_sample(rows_inputs):
+        rec.update(launches=0, status="ok")  # on no path: launched by its check only
+        records.append(rec)
+    del rows_inputs
+    log("phase kernels: the distance-transform kernel and bicubic_sample agree with their plain versions")
+
+    # --- phase 6: a small fusion problem on the card against the CPU path
+    small_fusion_agrees()
+    log("phase check: the card's fusion matches the plain CPU path")
+
+    if len(records) != 6:
+        fail(f"{len(records)} kernel records, expected 6")
     kernels = {"kernels": records}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,48 @@
-"""Refinement configuration (copy of `intrinsic3d_tpu/config.py::RefinementConfig`).
+"""Stage configurations (copies of `intrinsic3d_tpu/config.py`'s
+`KeyframesConfig`, `FusionConfig` and `RefinementConfig`).
 
-Mirrors data/intrinsic3d.yml (Intrinsic3D::Config + Optimizer::Config). The
-YAML `Settings` loader and the other stage configs stay in the JAX package
-until the port reaches the apps.
+They mirror data/keyframes.yml, data/fusion.yml and data/intrinsic3d.yml.
+The YAML `Settings` loader and the `from_settings` constructors wait for the
+apps' command-line `main()`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass
+class KeyframesConfig:
+    """Mirrors data/keyframes.yml."""
+
+    window_size: int = 20
+    filename: str = "./fusion/keyframes.txt"
+    show_keyframes: bool = False
+
+
+@dataclasses.dataclass
+class FusionConfig:
+    """Mirrors data/fusion.yml."""
+
+    keyframes: str = ""
+    voxel_size: float = 0.004
+    discont_window_size: int = 2
+    clip_x0: float = 0.0
+    clip_x1: float = 0.0
+    clip_y0: float = 0.0
+    clip_y1: float = 0.0
+    clip_z0: float = 0.0
+    clip_z1: float = 0.0
+    output_mesh: str = ""
+    output_sdf: str = ""
+
+    @property
+    def clip_bounds(self):
+        return (self.clip_x0, self.clip_x1, self.clip_y0, self.clip_y1, self.clip_z0, self.clip_z1)
+
+    @property
+    def has_clip_bounds(self) -> bool:
+        return any(abs(b) > 0.0 for b in self.clip_bounds)
 
 
 @dataclasses.dataclass

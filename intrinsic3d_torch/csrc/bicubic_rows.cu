@@ -1,24 +1,32 @@
 // Masked Catmull-Rom bicubic sampling of a [K, H, W] float32 image stack at
-// per-element (fid, x, y), with the value and, in the WITH_GRAD variant, the
-// two directional derivatives d/dx and d/dy.
+// per-element (fid, x, y), in three modes: the value (VALUE); the value and
+// the two directional derivatives d/dx and d/dy (VALUE_GRAD); and, given a
+// per-element cotangent g, g*d/dx and g*d/dy without the value (BACKWARD).
 //
 // Replaces the Pallas TPU kernels of intrinsic3d_tpu/ops/pallas/bicubic.py:
 //   _win_fwd_kernel     (called from _call_fwd,     the primal of bicubic_sample_rows)
 //   _win_fwdgrad_kernel (called from _call_fwdgrad, its vjp forward rule _rows_fwd_rule)
+//   _fwd_kernel         (called from _fwd, the primal of bicubic_sample): VALUE
+//   _bwd_kernel         (called from _bwd, its vjp backward rule): BACKWARD,
+//                       which recomputes the taps instead of storing the
+//                       derivatives in the forward, as _bwd does
 // The function is the same: coordinates clipped to [1, W-2.001] x [1, H-2.001],
 // 16 taps of frame fid weighted by the Catmull-Rom weights, 0 where inactive;
 // the derivatives are zeroed where the UNCLIPPED x is outside [1, W-2.001) or
-// y outside [1, H-2.001). The TPU design (frame-uniform 512-element chunks,
+// y outside [1, H-2.001). An inactive element gives 0 in every mode (the
+// Pallas kernels mask per 512-element chunk, so their inactive outputs are
+// unspecified). The TPU design (frame-uniform 512-element chunks,
 // 64-row image windows, one-hot row selects on the matrix unit with a bf16
 // hi/lo split) is not carried over: the taps here are exact float32 reads.
 //
 // Bound on the H100: memory traffic. Every element reads its 4 B `active`
-// flag and writes 4 B (value) or 12 B (value, ddx, ddy); only an active one
-// also reads 12 B (fid, x, y) and 16 image taps, which hit L2, since the
+// flag and writes 4 B (value), 12 B (value, ddx, ddy) or 8 B (backward);
+// only an active one also reads 12 B (fid, x, y), in the backward 4 B of g,
+// and 16 image taps, which hit L2, since the
 // image stack (8 x 240 x 320 x 4 B =
 // 2.5 MB at the benchmark's scale) is far smaller than the 50 MB L2. About 40
-// (value) or 110 (with derivatives) float operations per active element are
-// far below the card's float32 rate.
+// (value) or 110-125 (with derivatives) float operations per active element
+// are far below the card's float32 rate.
 //
 // Design: one thread per element; the per-element arrays are read and written
 // coalesced (neighbouring threads, neighbouring addresses); inactive elements
@@ -46,16 +54,21 @@ __device__ __forceinline__ void catrom_dw(float t, float w[4]) {
   w[3] = -t + 1.5f * t2;
 }
 
-template <bool WITH_GRAD>
+enum Mode { VALUE = 0, VALUE_GRAD = 1, BACKWARD = 2 };
+
+template <int MODE>
 __global__ void bicubic_rows_kernel(const float* __restrict__ images,
                                     const int32_t* __restrict__ fid,
                                     const float* __restrict__ x,
                                     const float* __restrict__ y,
                                     const float* __restrict__ active,
+                                    const float* __restrict__ g,
                                     float* __restrict__ out,
                                     float* __restrict__ ddx,
                                     float* __restrict__ ddy,
                                     int64_t m, int h, int w) {
+  constexpr bool WITH_VAL = MODE != BACKWARD;
+  constexpr bool WITH_GRAD = MODE != VALUE;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= m) return;
   float val = 0.0f, gx = 0.0f, gy = 0.0f;
@@ -91,18 +104,23 @@ __global__ void bicubic_rows_kernel(const float* __restrict__ images,
         r = fmaf(wx[i], v, r);
         if (WITH_GRAD) rd = fmaf(dwx[i], v, rd);
       }
-      val = fmaf(wy[j], r, val);
+      if (WITH_VAL) val = fmaf(wy[j], r, val);
       if (WITH_GRAD) {
         gx = fmaf(wy[j], rd, gx);
         gy = fmaf(dwy[j], r, gy);
       }
     }
     if (WITH_GRAD) {
+      if (MODE == BACKWARD) {
+        const float ge = __ldg(g + e);
+        gx *= ge;
+        gy *= ge;
+      }
       if (!(xe >= 1.0f && xe < xmax)) gx = 0.0f;
       if (!(ye >= 1.0f && ye < ymax)) gy = 0.0f;
     }
   }
-  out[e] = val;
+  if (WITH_VAL) out[e] = val;
   if (WITH_GRAD) {
     ddx[e] = gx;
     ddy[e] = gy;
@@ -122,13 +140,28 @@ extern "C" int i3d_bicubic_rows(const void* images, const void* fid, const void*
   const unsigned int blocks = (unsigned int)((m + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   if (with_grad) {
-    bicubic_rows_kernel<true><<<blocks, threads, 0, s>>>(
+    bicubic_rows_kernel<VALUE_GRAD><<<blocks, threads, 0, s>>>(
         (const float*)images, (const int32_t*)fid, (const float*)x, (const float*)y,
-        (const float*)active, (float*)out, (float*)ddx, (float*)ddy, (int64_t)m, h, w);
+        (const float*)active, nullptr, (float*)out, (float*)ddx, (float*)ddy, (int64_t)m, h, w);
   } else {
-    bicubic_rows_kernel<false><<<blocks, threads, 0, s>>>(
+    bicubic_rows_kernel<VALUE><<<blocks, threads, 0, s>>>(
         (const float*)images, (const int32_t*)fid, (const float*)x, (const float*)y,
-        (const float*)active, (float*)out, nullptr, nullptr, (int64_t)m, h, w);
+        (const float*)active, nullptr, (float*)out, nullptr, nullptr, (int64_t)m, h, w);
   }
+  return (int)cudaGetLastError();
+}
+
+// The backward of bicubic_sample: dx = g*d/dx, dy = g*d/dy per element.
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int i3d_bicubic_sample_bwd(const void* images, const void* fid, const void* x,
+                                      const void* y, const void* active, const void* g,
+                                      void* dx, void* dy, long long m, int h, int w,
+                                      void* stream) {
+  if (m <= 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((m + threads - 1) / threads);
+  bicubic_rows_kernel<BACKWARD><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)images, (const int32_t*)fid, (const float*)x, (const float*)y,
+      (const float*)active, (const float*)g, nullptr, (float*)dx, (float*)dy, (int64_t)m, h, w);
   return (int)cudaGetLastError();
 }

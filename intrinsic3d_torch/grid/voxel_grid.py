@@ -3,8 +3,8 @@
 Copy of the numpy part of `intrinsic3d_tpu/grid/voxel_grid.py`: packed
 coordinate keys, the stencil offset tables, `find_indices` by vectorized
 binary search, and the `VoxelGrid` record with the structural helpers the
-refinement slice uses. TSDF I/O and the native C++ lookup stay in the JAX
-package until the port reaches them.
+refinement and fusion use. TSDF I/O and the native C++ lookup stay in the
+JAX package until the port reaches them.
 """
 
 from __future__ import annotations
@@ -46,6 +46,17 @@ def find_indices(sorted_keys: np.ndarray, query_coords: np.ndarray) -> np.ndarra
     pos_c = np.clip(pos, 0, len(sorted_keys) - 1)
     hit = (pos < len(sorted_keys)) & (sorted_keys[pos_c] == qk)
     return np.where(hit, pos_c, -1).astype(np.int32).reshape(shape)
+
+
+def full_neighborhood_offsets(size: int, include_center: bool = False) -> np.ndarray:
+    """All offsets in a (2·size+1)³ cube, z-major as the reference enumerates
+    them (``algorithms.cpp:92-115``)."""
+    r = np.arange(-size, size + 1)
+    g = np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3)
+    if not include_center:
+        g = g[np.any(g != 0, axis=1)]
+    order = np.lexsort((g[:, 0], g[:, 1], g[:, 2]))
+    return g[order].astype(np.int32)
 
 
 # 6-neighborhood in the reference's order (+x, −x, +y, −y, +z, −z)
@@ -133,10 +144,21 @@ class VoxelGrid:
             g.sdf_refined = np.zeros(n, np.float32)
         return g
 
+    @property
+    def is_sbr(self) -> bool:
+        return self.sdf_refined is not None
+
     def neighbor_table(self, offsets: np.ndarray) -> np.ndarray:
         """Gather-index table `[N, S]` for stencil offsets `[S, 3]`; −1 absent."""
         q = self.coords[:, None, :] + np.asarray(offsets, np.int32)[None, :, :]
         return find_indices(self.keys, q)
+
+    def lookup(self, coords: np.ndarray) -> np.ndarray:
+        """Table indices of query coords `[..., 3]` (−1 where absent)."""
+        return find_indices(self.keys, np.asarray(coords, dtype=np.int64))
+
+    def exists(self, coords: np.ndarray) -> np.ndarray:
+        return self.lookup(coords) >= 0
 
     def valid_mask(self) -> np.ndarray:
         """Per-voxel `weight > 0` (``sparse_voxel_grid.cpp:253-259``)."""
@@ -145,6 +167,9 @@ class VoxelGrid:
     def voxel_to_world(self, coords=None) -> np.ndarray:
         c = self.coords if coords is None else np.asarray(coords)
         return c.astype(np.float32) * np.float32(self.voxel_size)
+
+    def world_to_voxel(self, pts: np.ndarray) -> np.ndarray:
+        return np.round(np.asarray(pts) / self.voxel_size).astype(np.int32)
 
     def select(self, mask_or_indices) -> "VoxelGrid":
         """New grid containing the selected voxels (sorted order preserved)."""
@@ -166,3 +191,14 @@ class VoxelGrid:
             depth_max=self.depth_max,
             integration_weight_sample=self.integration_weight_sample,
         )
+
+    def to_sbr(self) -> "VoxelGrid":
+        """Voxel → VoxelSBR conversion: `sdf_refined ← sdf`, albedo 0.6, and
+        invalid (weight ≤ 0) voxels dropped (``algorithms.cpp:47-72``)."""
+        g = self.select(self.valid_mask())
+        g.albedo = np.full(g.num_voxels, 0.6, np.float32)
+        g.sdf_refined = g.sdf.astype(np.float32).copy()
+        return g
+
+    def clone(self) -> "VoxelGrid":
+        return self.select(np.arange(self.num_voxels))

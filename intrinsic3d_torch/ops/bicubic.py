@@ -7,35 +7,32 @@ Counterpart of `intrinsic3d_tpu/ops/pallas/bicubic.py`:
   (x, y), differentiable in x and y. The forward launches the
   value-plus-derivatives variant when x or y requires grad, so the backward
   is the elementwise `g·ddx`, `g·ddy` of `_rows_bwd`.
+- `bicubic_sample` replaces `bicubic_sample` (Pallas `_fwd_kernel` and
+  `_bwd_kernel`): the same function with a custom backward that stores
+  nothing in the forward; the backward kernel recomputes the taps and
+  writes `g·∂/∂x`, `g·∂/∂y`. Both entries run over `csrc/bicubic_rows.cu`.
 - `nearest_rows` replaces `nearest_sample_rows` (Pallas `_nearest_kernel`):
   `images[fid, yi, xi]`, 0 where inactive, no gradient.
 
 On CUDA tensors the wrappers launch the kernels of `csrc/` (built by
 `ops.build`) or raise; on CPU tensors they run the plain PyTorch versions
-beside them (`bicubic_rows_plain`, `nearest_rows_plain`), which the CPU tests
-hold against the JAX package and `chip_smoke.py` holds the kernels against.
-`LAUNCHES` counts kernel launches (and only those).
+beside them (`bicubic_rows_plain`, `bicubic_sample_plain`,
+`nearest_rows_plain`), which the CPU tests hold against the JAX package and
+`chip_smoke.py` holds the kernels against. `LAUNCHES` (the registry of
+`ops.build`) counts kernel launches, and only those.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from intrinsic3d_torch.ops import build
-
-# kernel launches by entry, incremented where a kernel is launched and
-# nowhere else; `reset_launches` zeroes them
-LAUNCHES: Dict[str, int] = {"bicubic_rows_fwd": 0, "bicubic_rows_fwdgrad": 0, "nearest_rows": 0}
+from intrinsic3d_torch.ops.build import LAUNCHES, reset_launches  # noqa: F401 (re-exported)
 
 _VP = ctypes.c_void_p
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _catrom_w(t):
@@ -99,6 +96,28 @@ def bicubic_rows_plain(images, fid, x, y, active) -> Tuple[torch.Tensor, torch.T
     )
 
 
+def bicubic_sample_plain(images, fid, x, y, active) -> torch.Tensor:
+    """Masked Catmull-Rom value `[M]` by the 16 gathers of
+    `bicubic_rows_plain`, differentiable in x and y by autograd (the clamp
+    passes no gradient outside the clip range)."""
+    _, h, w = images.shape
+    xc = torch.clamp(x, 1.0, w - 2.001)
+    yc = torch.clamp(y, 1.0, h - 2.001)
+    x0f = torch.floor(xc).detach()
+    y0f = torch.floor(yc).detach()
+    wx, wy = _catrom_w(xc - x0f), _catrom_w(yc - y0f)
+    f = fid.long()
+    x0 = x0f.long() - 1
+    y0 = y0f.long() - 1
+    val = torch.zeros_like(xc)
+    for j in range(4):
+        r = torch.zeros_like(xc)
+        for i in range(4):
+            r = r + wx[i] * images[f, y0 + j, x0 + i]
+        val = val + wy[j] * r
+    return torch.where(active > 0.0, val, torch.zeros_like(val))
+
+
 def nearest_rows_plain(images, fid, yi, xi, active) -> torch.Tensor:
     """`images[fid, yi, xi]`, 0 where inactive (one advanced-index gather)."""
     v = images[fid, yi, xi]
@@ -131,22 +150,26 @@ def _check(images, ints, floats) -> None:
 # stream as void*, the element count as long long, sizes and flags as int
 _SIGNATURES = {
     "bicubic_rows": [_VP] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    "bicubic_sample_bwd": [_VP] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP],
     "nearest_rows": [_VP] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP],
 }
 
 
-def _entry(name: str):
-    """The `i3d_<name>` C function, its argument types declared."""
-    fn = getattr(build.load(name), f"i3d_{name}")
+def _entry(source: str, name: str):
+    """The `i3d_<name>` C function of `csrc/<source>.cu`, its argument types
+    declared."""
+    fn = getattr(build.load(source), f"i3d_{name}")
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_bicubic(images, fid, x, y, active, with_grad: bool):
+def _launch_bicubic(images, fid, x, y, active, with_grad: bool, counter: str = ""):
+    """Value (and, `with_grad`, ddx, ddy) of the sampler kernel; the launch
+    is counted under `counter`, by default the `bicubic_rows` entry."""
     _check(images, (fid,), (x, y, active))
-    fn = _entry("bicubic_rows")
+    fn = _entry("bicubic_rows", "bicubic_rows")
     out = torch.empty_like(x)
     ddx = torch.empty_like(x) if with_grad else None
     ddy = torch.empty_like(x) if with_grad else None
@@ -161,13 +184,32 @@ def _launch_bicubic(images, fid, x, y, active, with_grad: bool):
         )
     if rc != 0:
         raise RuntimeError(f"bicubic_rows kernel launch failed: CUDA error {rc}")
-    LAUNCHES["bicubic_rows_fwdgrad" if with_grad else "bicubic_rows_fwd"] += 1
+    LAUNCHES[counter or ("bicubic_rows_fwdgrad" if with_grad else "bicubic_rows_fwd")] += 1
     return out, ddx, ddy
+
+
+def _launch_bicubic_bwd(images, fid, x, y, active, g):
+    """`g·∂/∂x`, `g·∂/∂y` of the sampler, recomputed from the taps; 0 where
+    inactive or where the unclipped coordinate is outside its clip range."""
+    _check(images, (fid,), (x, y, active, g))
+    fn = _entry("bicubic_rows", "bicubic_sample_bwd")
+    dx, dy = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = fn(
+            images.data_ptr(), fid.data_ptr(), x.data_ptr(), y.data_ptr(), active.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+            x.shape[0], images.shape[1], images.shape[2],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"bicubic_sample_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["bicubic_sample_bwd"] += 1
+    return dx, dy
 
 
 def _launch_nearest(images, fid, yi, xi, active):
     _check(images, (fid, yi, xi), (active,))
-    fn = _entry("nearest_rows")
+    fn = _entry("nearest_rows", "nearest_rows")
     out = torch.empty_like(active)
     with torch.cuda.device(active.device):
         rc = fn(
@@ -211,6 +253,30 @@ def bicubic_rows(images, fid, x, y, active) -> torch.Tensor:
     [1, W−2.001] × [1, H−2.001]; the gradient in x (y) is zeroed where the
     unclipped x (y) lies outside [1, W−2.001) ([1, H−2.001))."""
     return _BicubicRows.apply(images, fid, x, y, active)
+
+
+class _BicubicSample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, images, fid, x, y, active):
+        out, _, _ = _launch_bicubic(images, fid, x, y, active, False, counter="bicubic_sample_fwd")
+        ctx.save_for_backward(images, fid, x, y, active)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        images, fid, x, y, active = ctx.saved_tensors
+        dx, dy = _launch_bicubic_bwd(images, fid, x, y, active, g.contiguous())
+        return None, None, dx, dy, None
+
+
+def bicubic_sample(images, fid, x, y, active) -> torch.Tensor:
+    """`bicubic_rows`' function with the memory-saving backward of the JAX
+    `bicubic_sample`: the forward keeps only its inputs, and the backward
+    kernel recomputes the taps. Inactive elements give 0 and a zero
+    gradient. CPU tensors take `bicubic_sample_plain` (autograd)."""
+    if x.is_cuda:
+        return _BicubicSample.apply(images, fid, x, y, active)
+    return bicubic_sample_plain(images, fid, x, y, active)
 
 
 def nearest_rows(images, fid, yi, xi, active) -> torch.Tensor:

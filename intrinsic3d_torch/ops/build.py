@@ -4,6 +4,10 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` into
 `build/intrinsic3d_torch/lib<name>.so` at first use (rebuilt when the source
 is newer), then loaded with `ctypes`. Nothing is compiled when a module is
 imported. `build_all` starts one `nvcc` per source, all at once.
+
+`LAUNCHES` is the one launch-count registry of the ops modules: one entry
+per kernel entry, incremented by a wrapper where it launches its kernel and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -17,11 +21,27 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "intrinsic3d_torch"
-SOURCES = ("bicubic_rows", "nearest_rows")
+SOURCES = ("bicubic_rows", "nearest_rows", "correct_sdf_dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# kernel launches by entry; `reset_launches` zeroes them
+LAUNCHES: Dict[str, int] = {
+    "bicubic_rows_fwd": 0,
+    "bicubic_rows_fwdgrad": 0,
+    "nearest_rows": 0,
+    "correct_sdf_dense": 0,
+    "bicubic_sample_fwd": 0,
+    "bicubic_sample_bwd": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
 
 # loaded libraries by source name (a process-wide cache of dlopen handles)
 _LIBS: Dict[str, ctypes.CDLL] = {}

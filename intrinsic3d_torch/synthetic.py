@@ -1,9 +1,11 @@
-"""Synthetic scenes: analytic sphere rendering + ready-made refinement problems.
+"""Synthetic scenes: analytic sphere rendering, ready-made refinement
+problems, and the orbit capture of the pipeline benchmark.
 
-Counterpart of `intrinsic3d_tpu/synthetic.py`: the host rendering is the
-same numpy code (the same `default_rng(seed)` draws give the same problem),
-and the problem's device fields are torch tensors. The flat-table oracle
-`SphereProblem.assemble` is not part of this slice.
+Counterpart of `intrinsic3d_tpu/synthetic.py` and of
+`bench_pipeline.py::build_dataset`: the host rendering is the same numpy
+code (the same `default_rng(seed)` draws give the same images), and the
+refinement problem's device fields are torch tensors. The flat-table oracle
+`SphereProblem.assemble` is not part of the port.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import numpy as np
 import torch
 
 from intrinsic3d_torch.camera import Camera
-from intrinsic3d_torch.config import RefinementConfig
+from intrinsic3d_torch.config import FusionConfig, KeyframesConfig, RefinementConfig
 from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
+from intrinsic3d_torch.io.memory_sensor import MemorySensor
 from intrinsic3d_torch.mathutil import invert_pose, pose_matrix_to_vec
 from intrinsic3d_torch.refine.assembly import LevelTopology
 from intrinsic3d_torch.refine.optimizer import LevelSetup, prepare_level
@@ -247,3 +250,53 @@ def build_sphere_problem(
         voxel_sh=np.broadcast_to(light, (grid.num_voxels, 9)).copy(),
         thres_shell=2.0 * voxel_size,
     )
+
+
+# Stages 1 and 2 of bench_pipeline.py at its defaults: a 30-frame 640×480
+# orbit around a 0.12 m sphere, keyframe window 3, fusion at 4 mm with
+# discontinuity window 2 and clip bounds ±2.5·radius around the centre
+PIPELINE_DATASET = dict(num_frames=30, width=640, height=480, center=DEFAULT_CENTER, radius=0.12)
+PIPELINE_SETTINGS = dict(window_size=3, voxel_size=0.004, discont_window_size=2, clip_factor=2.5)
+
+
+def build_orbit_dataset(num_frames, width, height, center, radius, seed=0) -> MemorySensor:
+    """Orbit capture (`bench_pipeline.py::build_dataset`): cameras on a ring
+    around the sphere with a mild elevation wobble, Lambertian SH shading of
+    the default albedo texture, a 3×3 box blur on two frames of every three
+    (so keyframe selection has signal) and seeded noise. Host numpy."""
+    f = 0.92 * max(width, height)
+    cam = Camera.create(f, f, (width - 1) / 2.0, (height - 1) / 2.0, width, height)
+    rng = np.random.default_rng(seed)
+    colors, depths, poses = [], [], []
+    for i in range(num_frames):
+        ang = 2.0 * np.pi * i / num_frames
+        eye = np.asarray(center) + 3.4 * radius * np.array(
+            [np.sin(ang), 0.35 * np.sin(2.1 * ang + 0.5), -np.cos(ang)]
+        )
+        T = look_at_pose(eye, center)
+        img, depth = render_shading_image(cam, T, center, radius, DEFAULT_LIGHT)
+        if i % 3 != 0:
+            img = (np.roll(img, 1, 0) + img + np.roll(img, -1, 0)) / 3.0
+            img = (np.roll(img, 1, 1) + img + np.roll(img, -1, 1)) / 3.0
+        img = np.clip(img + rng.normal(0.0, 0.003, img.shape), 0.0, 1.0)
+        colors.append(np.stack([img] * 3, axis=-1).astype(np.float32))
+        depths.append(depth)
+        poses.append(T)
+    return MemorySensor(cam, cam, colors, depths, poses, depth_min=0.1, depth_max=2.0)
+
+
+def pipeline_configs(
+    center=DEFAULT_CENTER, radius: float = 0.12, window_size: int = 3, voxel_size: float = 0.004,
+    discont_window_size: int = 2, clip_factor: float = 2.5,
+):
+    """(`KeyframesConfig`, `FusionConfig`) of bench_pipeline.py's stages 1
+    and 2: clip bounds ±clip_factor·radius around `center`."""
+    r = clip_factor * radius
+    c = np.asarray(center, np.float64)
+    fusion = FusionConfig(
+        voxel_size=voxel_size, discont_window_size=discont_window_size,
+        clip_x0=float(c[0] - r), clip_x1=float(c[0] + r),
+        clip_y0=float(c[1] - r), clip_y1=float(c[1] + r),
+        clip_z0=float(c[2] - r), clip_z1=float(c[2] + r),
+    )
+    return KeyframesConfig(window_size=window_size, filename=""), fusion

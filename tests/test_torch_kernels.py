@@ -9,14 +9,18 @@ there with
 (`--noconftest`: the suite's conftest imports JAX). Tolerances: the
 bicubic kernel fuses its tap sums into FMAs where the plain version rounds
 each product, so they agree to float32 rounding (rtol 1e-5, atol 1e-5 on
-unit-range images); the nearest-pixel read is exact.
+unit-range images); the nearest-pixel read is exact; the distance-transform
+sweeps agree to atol 1e-6 in sdf (one rounding per candidate, as in the plain
+version) and exactly in weight.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from intrinsic3d_torch.ops import bicubic, build
+from intrinsic3d_torch.ops import bicubic, build, distance_transform
+
+NO_LAUNCHES = dict.fromkeys(build.LAUNCHES, 0)
 
 
 def _rows_problem(seed, k=8, h=240, w=320, m=8 * 40 * 512):
@@ -49,7 +53,7 @@ def test_bicubic_rows_kernel_matches_plain(cuda_device):
     val, ddx, ddy = bicubic.bicubic_rows_plain(*dev)
     for got, want in ((out, val), (fwd_only, val), (gx, ddx), (gy, ddy)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert bicubic.LAUNCHES == {"bicubic_rows_fwd": 1, "bicubic_rows_fwdgrad": 1, "nearest_rows": 0}
+    assert bicubic.LAUNCHES == dict(NO_LAUNCHES, bicubic_rows_fwd=1, bicubic_rows_fwdgrad=1)
 
 
 @pytest.mark.cuda
@@ -104,6 +108,80 @@ def test_outer_step_on_the_card_matches_the_cpu_path(cuda_device):
     np.testing.assert_allclose([t[:2] for t in traj["cuda"]], [t[:2] for t in traj["cpu"]], rtol=1e-3)
 
 
+def _sphere_band(shape, voxel, seed):
+    """A sphere SDF truncated at 5 voxels plus seeded noise, weight > 0 in
+    the band and 0 elsewhere (so the sweeps have work)."""
+    rng = np.random.default_rng(seed)
+    c = [np.arange(n, dtype=np.float64) * voxel for n in shape]
+    gx, gy, gz = np.meshgrid(*c, indexing="ij")
+    centre = [0.5 * n * voxel for n in shape]
+    r = 0.35 * min(shape) * voxel
+    true = np.sqrt((gx - centre[0]) ** 2 + (gy - centre[1]) ** 2 + (gz - centre[2]) ** 2) - r
+    band = np.abs(true) < 5 * voxel
+    sdf = np.where(band, true + rng.normal(0.0, 0.5 * voxel, shape), 0.0).astype(np.float32)
+    w = np.where(band, rng.uniform(0.5, 3.0, shape), 0.0).astype(np.float32)
+    return sdf, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 4, 10])
+def test_correct_sdf_dense_kernel_matches_plain(cuda_device, iters):
+    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in _sphere_band((40, 37, 50), 0.004, 31))
+    want_s, want_w = distance_transform.correct_sdf_dense_plain(sdf, w, 0.004, iters)
+    build.reset_launches()
+    got_s, got_w = distance_transform.correct_sdf_dense(sdf, w, 0.004, iters)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == dict(NO_LAUNCHES, correct_sdf_dense=iters)
+    torch.testing.assert_close(got_s, want_s, rtol=0, atol=1e-6)
+    assert torch.equal(got_w, want_w)
+    assert not torch.equal(got_s, sdf)  # the sweeps did work
+    with pytest.raises(ValueError):
+        distance_transform.correct_sdf_dense(sdf, w[:, :, :-1], 0.004, iters)
+
+
+@pytest.mark.cuda
+def test_bicubic_sample_kernels_match_plain(cuda_device):
+    """K4a (value) and K4b (g·∂x, g·∂y recomputed from the taps) against the
+    plain version's value and autograd gradient."""
+    images, fid, x, y, active = (torch.as_tensor(a, device=cuda_device) for a in _rows_problem(37))
+    g = torch.as_tensor(np.random.default_rng(41).normal(size=x.shape[0]).astype(np.float32), device=cuda_device)
+    build.reset_launches()
+    xk, yk = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    out = bicubic.bicubic_sample(images, fid, xk, yk, active)
+    gx, gy = torch.autograd.grad(out, (xk, yk), grad_outputs=g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == dict(NO_LAUNCHES, bicubic_sample_fwd=1, bicubic_sample_bwd=1)
+    xp, yp = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    want = bicubic.bicubic_sample_plain(images, fid, xp, yp, active)
+    wx, wy = torch.autograd.grad(want, (xp, yp), grad_outputs=g)
+    torch.testing.assert_close(out.detach(), want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-5 * float(wx.abs().max()))
+    torch.testing.assert_close(gy, wy, rtol=1e-5, atol=1e-5 * float(wy.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fusion_on_the_card_matches_the_cpu_path(cuda_device):
+    """A small fusion problem (4 orbit frames, 64×48, clip bounds): the
+    card's route (dense sweeps, K3) against the CPU's (the gather table),
+    which reach the same fixed point — the same voxel set, sdf atol 1e-6,
+    weight rtol 1e-5, color atol 1e-3 (matmuls and sums in another order)."""
+    from intrinsic3d_torch.apps import app_fusion
+    from intrinsic3d_torch.synthetic import build_orbit_dataset, pipeline_configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sensor = build_orbit_dataset(4, 64, 48, center=(0.0, 0.0, 0.6), radius=0.12)
+    _, cfg = pipeline_configs(center=(0.0, 0.0, 0.6), radius=0.12)
+    build.reset_launches()
+    card = app_fusion.run(sensor, cfg, device="cuda")
+    assert build.LAUNCHES["correct_sdf_dense"] == 10
+    cpu = app_fusion.run(sensor, cfg, device="cpu")
+    assert card.num_voxels > 500
+    np.testing.assert_array_equal(card.coords, cpu.coords)
+    np.testing.assert_allclose(card.sdf, cpu.sdf, atol=1e-6)
+    np.testing.assert_allclose(card.weight, cpu.weight, rtol=1e-5)
+    np.testing.assert_allclose(card.color, cpu.color, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # What runs without a card
 # ---------------------------------------------------------------------------
@@ -120,7 +198,7 @@ def test_cpu_tensors_take_the_plain_versions():
         bicubic.nearest_rows(images, fid, yi, xi, active),
         bicubic.nearest_rows_plain(images, fid, yi, xi, active), rtol=0, atol=0,
     )
-    assert bicubic.LAUNCHES == {"bicubic_rows_fwd": 0, "bicubic_rows_fwdgrad": 0, "nearest_rows": 0}
+    assert bicubic.LAUNCHES == NO_LAUNCHES
 
 
 def test_plain_bicubic_reproduces_an_affine_image():
