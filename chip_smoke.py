@@ -26,10 +26,12 @@ frames at 640x480, voxel 0.004 m, clip bounds +-2.5 radius):
    distance-transform kernel's inputs), then again with the counters zeroed
    just before and read just after, and holds the fused SDF to the analytic
    sphere;
-6. holds the distance-transform kernel against its plain version on the
-   path's window and on a 411x211x501 field (the Lion dataset's crop volume
-   at 4 mm), and the masked sampler's forward and backward (on no path) on
-   the sampler inputs of step 1;
+6. holds the distance-transform kernel (several sweeps fused per launch)
+   against its plain version bit for bit on the path's window and on a
+   411x211x501 field (the Lion dataset's crop volume at 4 mm), with its
+   sweeps per launch, launches per call and share of its bound, and the
+   masked sampler's forward and backward (on no path) on the sampler inputs
+   of step 1;
 7. checks a small fusion problem on the card against the CPU path.
 
 Prints the card (`nvidia-smi` name and power limit), one line per phase, a
@@ -64,11 +66,12 @@ BICUBIC_OPS = {
     "fwdgrad": 4 * 10 + 2 * (2 * 16 + 3 * 4),
     "bwd": 4 * 10 + 2 * (2 * 16 + 2 * 4) + 2,
 }
-# operations per neighbour of a valid voxel in one sweep, counted from
-# csrc/correct_sdf_dense.cu: the weight test, the sign test of the
-# neighbour, the sign comparison, the candidate's add, its |.| and the
-# comparison with the best (index arithmetic and bounds checks not counted)
-DT_OPS_PER_NEIGHBOUR = 6
+# operations per neighbour of a valid voxel in one sweep, the least the
+# function needs: csrc/correct_sdf_dense.cu folds the sign test and the min
+# with the best into one integer min of the neighbour's bits (the class's
+# step is added once per voxel; index arithmetic and shared-memory reads not
+# counted)
+DT_OPS_PER_NEIGHBOUR = 1
 DT_ITERS = 10
 # the reference's Lion crop volume at 4 mm (BASELINE.md): x in [-0.09, 1.55],
 # y in [-0.58, 0.26], z in [0, 2.0]
@@ -329,41 +332,51 @@ def sphere_band_field(shape, voxel: float, seed: int):
 
 def check_distance_transform(window_inputs) -> dict:
     """K3 against its plain version on the fusion path's dense window and on
-    the DT_FIELD sphere band: equal sdf within atol 1e-6 and equal weight.
+    the DT_FIELD sphere band: the same sdf bit for bit and the same weight.
     Returns the record at the path's window, with the field's numbers under
     `field`."""
     import torch
 
+    from intrinsic3d_torch.ops import build
     from intrinsic3d_torch.ops import distance_transform as dt
 
     sdf, weight, voxel, iters = window_inputs
     out = {}
     for tag, (s_in, w_in, vs) in (("window", (sdf, weight, voxel)),
                                   ("field", (*sphere_band_field(DT_FIELD, 0.004, 11), 0.004))):
+        plan = dt.sweep_plan(s_in.shape, iters)
+        build.reset_launches()
         got_s, got_w = dt.correct_sdf_dense(s_in, w_in, vs, iters)
+        launches = build.LAUNCHES["correct_sdf_dense"]
+        if not 0 < launches == len(plan.sweeps) < iters:
+            fail(f"correct_sdf_dense ({tag}) launched {launches} times, not the {len(plan.sweeps)} of its plan "
+                 f"for {iters} sweeps")
         want_s, want_w = dt.correct_sdf_dense_plain(s_in, w_in, vs, iters)
         torch.cuda.synchronize()
         err = float((got_s - want_s).abs().max())
-        if err > 1e-6 or not torch.equal(got_w, want_w):
+        if not (torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)) and torch.equal(got_w, want_w)):
             fail(f"correct_sdf_dense ({tag}) differs from its plain version: max sdf err {err:.3e}, "
                  f"weights equal {torch.equal(got_w, want_w)}")
         changed = int((got_s != s_in).sum())
         n = s_in.numel()
         n_valid = int((w_in > 0).sum())
-        kernel = lambda: dt._launch(s_in, w_in, vs, iters)  # noqa: E731
+        kernel = lambda: dt._run_plan(s_in, w_in, vs, plan)  # noqa: E731
         reps = 20 if tag == "window" else 5
         ms, call_ms = graph_ms(kernel, reps), cuda_ms(kernel, reps)
         plain_ms = cuda_ms(lambda: dt.correct_sdf_dense_plain(s_in, w_in, vs, iters), 3)
         b_ms, b_by = bound(16 * n, iters * 26 * DT_OPS_PER_NEIGHBOUR * n_valid)
         log(f"  correct_sdf_dense ({tag}): dims={tuple(s_in.shape)} voxels={n} valid={n_valid} "
-            f"changed={changed} iters={iters} max_abs_err={err:.3e} ms={ms:.4f} call_ms={call_ms:.4f} "
+            f"changed={changed} iters={iters} launches_per_call={launches} (counted) "
+            f"plan: sweeps_per_launch={list(plan.sweeps)} tile={plan.tile_y}x{plan.tile_z(plan.sweeps[0])}x{plan.seg} "
+            f"cols={plan.cols} threads={plan.threads(plan.sweeps[0])} "
+            f"blocks={plan.blocks(s_in.shape)}; max_abs_err={err:.3e} ms={ms:.4f} call_ms={call_ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) pct_of_bound={100 * b_ms / ms:.1f}")
         out[tag] = dict(dims=list(s_in.shape), max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by)
+                        bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / ms, launches_per_call=launches)
         del got_s, got_w, want_s, want_w
     rec = dict(name="correct_sdf_dense", route="cuda", source="intrinsic3d_torch/csrc/correct_sdf_dense.cu",
                replaces="intrinsic3d_tpu/ops/pallas/distance_transform.py:179", library_ms=None,
-               **{k: out["window"][k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+               **{k: v for k, v in out["window"].items() if k != "dims"})
     rec["field"] = out["field"]
     return rec
 
@@ -423,8 +436,12 @@ def fusion_phase() -> tuple:
     log(f"  bitmap dims {stats['dims']} ({int(torch.tensor(stats['dims']).prod())} voxels), allocated "
         f"{stats['allocated']}, kept {stats['kept']}, K3 window dims {tuple(win[0].shape)}, "
         f"launches {launches}")
-    if launches["correct_sdf_dense"] == 0:
-        fail("the fusion path never launched the distance-transform kernel")
+    from intrinsic3d_torch.ops import distance_transform as dt
+
+    planned = len(dt.sweep_plan(win[0].shape, win[3]).sweeps)
+    if not 0 < launches["correct_sdf_dense"] == planned < win[3]:
+        fail(f"the fusion path launched the distance-transform kernel {launches['correct_sdf_dense']} times, "
+             f"not the {planned} of its plan for {win[3]} sweeps")
     med, p90, n_near = fused_sdf_error(grid, center, radius)
     log(f"  fused sdf vs the analytic sphere on {n_near} near-surface voxels: median {med:.6f} m, "
         f"p90 {p90:.6f} m (bar: < {fcfg.voxel_size} m, < {2.5 * fcfg.voxel_size} m)")

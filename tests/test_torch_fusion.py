@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from intrinsic3d_tpu.apps import app_fusion as j_app_fusion
 from intrinsic3d_tpu.apps import app_keyframes as j_app_keyframes
@@ -58,6 +59,7 @@ from intrinsic3d_torch.image.interp import bilinear
 from intrinsic3d_torch.io.memory_sensor import MemorySensor
 from intrinsic3d_torch.keyframes import KeyframeSelection
 from intrinsic3d_torch.ops import bicubic, build
+from intrinsic3d_torch.ops import distance_transform as dt
 from intrinsic3d_torch.ops.distance_transform import correct_sdf_dense, correct_sdf_dense_plain
 from intrinsic3d_torch.synthetic import (
     DEFAULT_CENTER,
@@ -257,6 +259,142 @@ def test_correct_sdf_dense_plain_matches_pallas(shape, iters):
     s2, w2 = correct_sdf_dense(torch.as_tensor(sdf), torch.as_tensor(w), 0.01, iters=iters)
     assert torch.equal(s2, got_s) and torch.equal(w2, got_w)
     assert build.LAUNCHES["correct_sdf_dense"] == 0
+
+
+def _interiors(shape, plan, k):
+    """The interior box of every block of a launch of k sweeps, as the
+    kernel's grid cuts the window: (x0, x1, y0, y1, z0, z1)."""
+    x, y, z = shape
+    tz = plan.tile_z(k)
+    for i in range(0, x, plan.seg):
+        for j in range(0, y, plan.tile_y):
+            for m in range(0, z, tz):
+                yield i, min(i + plan.seg, x), j, min(j + plan.tile_y, y), m, min(m + tz, z)
+
+
+def _run_schedule(sdf, weight, voxel_size, plan):
+    """The plan's tile schedule in plain PyTorch: per launch of k sweeps,
+    each block's interior grown by a k-deep halo (cut at the window, whose
+    outside is invalid), swept k times, its interior kept; launches chained."""
+    steps = torch.as_tensor(dt.step_lengths(voxel_size))
+    shape = sdf.shape
+    for k in plan.sweeps:
+        out_s, out_w = torch.empty_like(sdf), torch.empty_like(weight)
+        for box in _interiors(shape, plan, k):
+            lo = [max(box[2 * d] - k, 0) for d in range(3)]
+            hi = [min(box[2 * d + 1] + k, shape[d]) for d in range(3)]
+            s_t, w_t = sdf[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]], weight[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+            for _ in range(k):
+                s_t, w_t = dt._sweep_plain(s_t, w_t, steps)
+            keep = tuple(slice(box[2 * d] - lo[d], box[2 * d + 1] - lo[d]) for d in range(3))
+            dst = tuple(slice(box[2 * d], box[2 * d + 1]) for d in range(3))
+            out_s[dst], out_w[dst] = s_t[keep], w_t[keep]
+        sdf, weight = out_s, out_w
+    return sdf, weight
+
+
+# a dim smaller than the tile, a dim smaller than the sweeps of a launch,
+# Z = 1, dims that are no multiples of the tile, the fusion path's window
+DT_SHAPES = [((9, 5, 12), 0.4), ((3, 18, 20), 0.4), ((12, 10, 1), 0.5), ((17, 19, 61), 0.3), ((73, 63, 73), 0.05)]
+
+
+@pytest.mark.parametrize("iters", [1, 3, 7, 10, 11])
+@pytest.mark.parametrize("shape,density", DT_SHAPES, ids=["x".join(map(str, s)) for s, _ in DT_SHAPES])
+def test_sweep_plan_schedule_matches_plain(shape, density, iters):
+    """The kernel's tile schedule (halo as deep as a launch's sweeps) gives
+    the plain version's sdf and weight bit for bit."""
+    sdf, w = (torch.as_tensor(a) for a in _random_field(shape, density=density, seed=5))
+    plan = dt.sweep_plan(shape, iters)
+    got_s, got_w = _run_schedule(sdf, w, 0.01, plan)
+    want_s, want_w = correct_sdf_dense_plain(sdf, w, 0.01, iters)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(got_w, want_w)
+    assert not torch.equal(got_s, sdf)  # the sweeps did work
+
+
+def test_sweep_plan_schedule_matches_pallas():
+    shape, iters = (17, 19, 61), 7
+    sdf, w = _random_field(shape, density=0.3, seed=6)
+    want_s, want_w = j_correct_sdf_dense(jnp.asarray(sdf), jnp.asarray(w), 0.01, tile=8, iters=iters, interpret=True)
+    got_s, got_w = _run_schedule(torch.as_tensor(sdf), torch.as_tensor(w), 0.01, dt.sweep_plan(shape, iters))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-6)
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+
+
+@pytest.mark.parametrize("shape", [(9, 5, 12), (3, 18, 20), (12, 10, 1), (73, 63, 73), (247, 127, 301),
+                                   (411, 211, 501), (1, 1, 1)])
+def test_sweep_plan_covers_every_voxel_once(shape):
+    for iters in (1, 3, 7, 10, 11):
+        plan = dt.sweep_plan(shape, iters)
+        k_max = (dt.SMALL_PLAN if np.prod(shape) <= dt.LARGE_FROM_VOXELS else dt.LARGE_PLAN)[0]
+        assert sum(plan.sweeps) == iters and len(plan.sweeps) == -(-iters // k_max)
+        assert all(0 < k <= min(k_max, dt.MAX_SWEEPS) for k in plan.sweeps)
+        assert plan.cols % 32 == 0
+        for k in plan.sweeps:
+            assert dt.smem_bytes(k, plan.tile_y, plan.cols) <= dt.SMEM_BYTES and plan.tile_z(k) >= 1
+            assert plan.threads(k) <= dt.MAX_THREADS
+            boxes = list(_interiors(shape, plan, k))
+            # the blocks' interiors cut each axis into consecutive runs, and
+            # are their product, so they partition the window
+            for d in range(3):
+                runs = sorted({(b[2 * d], b[2 * d + 1]) for b in boxes})
+                assert runs[0][0] == 0 and runs[-1][1] == shape[d]
+                assert all(r0[1] == r1[0] for r0, r1 in zip(runs, runs[1:]))
+            if np.prod(shape) <= 10**6:
+                count = np.zeros(shape, np.int32)
+                for x0, x1, y0, y1, z0, z1 in boxes:
+                    count[x0:x1, y0:y1, z0:z1] += 1
+                assert (count == 1).all()
+            assert int(np.prod(plan.grid(shape, k))) == len(boxes) == len(set(boxes))
+
+
+def _sweeps_by_keys(sdf, weight, voxel_size, iters):
+    """`iters` sweeps as the kernel computes them: invalid voxels as NaN and
+    -0 as +0, each class's least |nb| of the voxel's sign as the least
+    unsigned (sdf >= 0) or signed (sdf < 0) bit pattern, plus the class's
+    step; the input kept where |sdf| did not fall, else (sdf, 1)."""
+    d = dt.class_steps(voxel_size)
+    cls = np.abs(dt.OFFSETS).sum(axis=1) - 1
+    nan = torch.tensor(float("nan"))
+    v0 = torch.where(weight > 0, sdf + 0.0, nan)
+    v = v0
+    x, y, z = sdf.shape
+    for _ in range(iters):
+        bits = F.pad(v[None], (1, 1, 1, 1, 1, 1), value=float("nan"))[0].view(torch.int32).to(torch.int64)
+        kp = [torch.full(sdf.shape, 2**32 - 1, dtype=torch.int64) for _ in range(3)]
+        kn = [torch.full(sdf.shape, 2**31 - 1, dtype=torch.int64) for _ in range(3)]
+        for k, (dx, dy, dz) in enumerate(dt.OFFSETS + 1):
+            b = bits[dx:dx + x, dy:dy + y, dz:dz + z]
+            kp[cls[k]] = torch.minimum(kp[cls[k]], b & 0xFFFFFFFF)
+            kn[cls[k]] = torch.minimum(kn[cls[k]], b)
+        pos = v >= 0
+        best = torch.full(sdf.shape, float("inf"))
+        for c in range(3):
+            as_float = lambda k: ((k + 2**31) % 2**32 - 2**31).to(torch.int32).view(torch.float32)  # noqa: E731
+            ok = torch.where(pos, kp[c] <= 0x7F800000, kn[c] <= -8388608)
+            u = torch.where(pos, as_float(kp[c]), -as_float(kn[c]))
+            best = torch.where(ok, torch.minimum(best, u + float(d[c])), best)
+        v = torch.where(best < v.abs(), torch.where(pos, best, -best), v)
+    fell = v.abs() < v0.abs()
+    return torch.where(fell, v, sdf), torch.where(fell, torch.ones_like(weight), weight)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_candidate_rule_matches_plain(seed):
+    """The kernel's arithmetic (class minima of integer keys, NaN for
+    invalid voxels, -0 as +0, the output kept where |sdf| did not fall)
+    gives the plain version's sdf and weight bit for bit, on fields with
+    -0, +0, NaN and infinite values."""
+    shape = (9, 11, 13)
+    sdf, w = (torch.as_tensor(a) for a in _random_field(shape, density=0.6, seed=seed))
+    rng = np.random.default_rng(seed)
+    for value in (-0.0, 0.0, float("nan"), float("inf"), float("-inf")):
+        sdf.view(-1)[torch.as_tensor(rng.integers(0, sdf.numel(), 6))] = value
+    got_s, got_w = _sweeps_by_keys(sdf, w, 0.01, 4)
+    want_s, want_w = correct_sdf_dense_plain(sdf, w, 0.01, 4)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(got_w, want_w)
+    assert not torch.equal(got_w, w)  # the sweeps did work
 
 
 def _sparse_grid(seed, jax_cls=False):

@@ -10,8 +10,8 @@ there with
 bicubic kernel fuses its tap sums into FMAs where the plain version rounds
 each product, so they agree to float32 rounding (rtol 1e-5, atol 1e-5 on
 unit-range images); the nearest-pixel read is exact; the distance-transform
-sweeps agree to atol 1e-6 in sdf (one rounding per candidate, as in the plain
-version) and exactly in weight.
+sweeps agree bit for bit in sdf and weight (one rounding per candidate, as in
+the plain version).
 """
 
 import numpy as np
@@ -108,35 +108,52 @@ def test_outer_step_on_the_card_matches_the_cpu_path(cuda_device):
     np.testing.assert_allclose([t[:2] for t in traj["cuda"]], [t[:2] for t in traj["cpu"]], rtol=1e-3)
 
 
-def _sphere_band(shape, voxel, seed):
-    """A sphere SDF truncated at 5 voxels plus seeded noise, weight > 0 in
-    the band and 0 elsewhere (so the sweeps have work)."""
+def _random_field(shape, density, seed):
     rng = np.random.default_rng(seed)
-    c = [np.arange(n, dtype=np.float64) * voxel for n in shape]
-    gx, gy, gz = np.meshgrid(*c, indexing="ij")
-    centre = [0.5 * n * voxel for n in shape]
-    r = 0.35 * min(shape) * voxel
-    true = np.sqrt((gx - centre[0]) ** 2 + (gy - centre[1]) ** 2 + (gz - centre[2]) ** 2) - r
-    band = np.abs(true) < 5 * voxel
-    sdf = np.where(band, true + rng.normal(0.0, 0.5 * voxel, shape), 0.0).astype(np.float32)
-    w = np.where(band, rng.uniform(0.5, 3.0, shape), 0.0).astype(np.float32)
+    sdf = rng.normal(0.0, 0.05, shape).astype(np.float32)
+    w = (rng.uniform(size=shape) < density).astype(np.float32) * rng.uniform(1.0, 5.0, shape).astype(np.float32)
     return sdf, w
 
 
+# shapes that stress the plan's edges: a dim smaller than the tile, a dim
+# smaller than the sweeps of a launch, Z = 1, dims that are no multiples of
+# the tile, and the fusion path's window shape at low density
+DT_SHAPES = [((9, 5, 12), 0.4), ((3, 18, 20), 0.4), ((12, 10, 1), 0.5), ((40, 37, 61), 0.3), ((73, 63, 73), 0.05)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("iters", [1, 4, 10])
-def test_correct_sdf_dense_kernel_matches_plain(cuda_device, iters):
-    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in _sphere_band((40, 37, 50), 0.004, 31))
+@pytest.mark.parametrize("iters", [1, 3, 7, 10, 11])
+@pytest.mark.parametrize("shape,density", DT_SHAPES, ids=["x".join(map(str, s)) for s, _ in DT_SHAPES])
+def test_correct_sdf_dense_kernel_matches_plain(cuda_device, shape, density, iters):
+    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in _random_field(shape, density, 31))
     want_s, want_w = distance_transform.correct_sdf_dense_plain(sdf, w, 0.004, iters)
     build.reset_launches()
     got_s, got_w = distance_transform.correct_sdf_dense(sdf, w, 0.004, iters)
     torch.cuda.synchronize()
-    assert build.LAUNCHES == dict(NO_LAUNCHES, correct_sdf_dense=iters)
-    torch.testing.assert_close(got_s, want_s, rtol=0, atol=1e-6)
+    plan = distance_transform.sweep_plan(shape, iters)
+    assert build.LAUNCHES == dict(NO_LAUNCHES, correct_sdf_dense=len(plan.sweeps))
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))  # bit for bit
     assert torch.equal(got_w, want_w)
     assert not torch.equal(got_s, sdf)  # the sweeps did work
     with pytest.raises(ValueError):
-        distance_transform.correct_sdf_dense(sdf, w[:, :, :-1], 0.004, iters)
+        distance_transform.correct_sdf_dense(sdf, w[:, :, :-1].contiguous(), 0.004, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [
+    distance_transform.SweepPlan((9,), 4, 32, 4),     # more sweeps than the kernel's bit masks hold
+    distance_transform.SweepPlan((5,), 16, 48, 4),    # columns no multiple of 32
+    distance_transform.SweepPlan((2,), 40, 128, 4),   # more threads than the launch bound
+    distance_transform.SweepPlan((8,), 80, 32, 4),    # more shared memory than a block has
+], ids=["sweeps", "cols", "threads", "smem"])
+def test_correct_sdf_dense_rejects_a_plan_beyond_the_kernel(cuda_device, plan):
+    """The C entry holds the kernel's limits: it launches nothing for such a
+    plan and the wrapper raises."""
+    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in _random_field((9, 5, 12), 0.4, 31))
+    build.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        distance_transform._run_plan(sdf, w, 0.004, plan)
+    assert build.LAUNCHES == NO_LAUNCHES
 
 
 @pytest.mark.cuda
@@ -160,20 +177,25 @@ def test_bicubic_sample_kernels_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_fusion_on_the_card_matches_the_cpu_path(cuda_device):
+def test_fusion_on_the_card_matches_the_cpu_path(cuda_device, monkeypatch):
     """A small fusion problem (4 orbit frames, 64×48, clip bounds): the
     card's route (dense sweeps, K3) against the CPU's (the gather table),
     which reach the same fixed point — the same voxel set, sdf atol 1e-6,
     weight rtol 1e-5, color atol 1e-3 (matmuls and sums in another order)."""
     from intrinsic3d_torch.apps import app_fusion
+    from intrinsic3d_torch.grid import algorithms
     from intrinsic3d_torch.synthetic import build_orbit_dataset, pipeline_configs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     sensor = build_orbit_dataset(4, 64, 48, center=(0.0, 0.0, 0.6), radius=0.12)
     _, cfg = pipeline_configs(center=(0.0, 0.0, 0.6), radius=0.12)
+    windows = []
+    dense = distance_transform.correct_sdf_dense
+    monkeypatch.setattr(algorithms, "correct_sdf_dense", lambda s, *a: windows.append(s.shape) or dense(s, *a))
     build.reset_launches()
     card = app_fusion.run(sensor, cfg, device="cuda")
-    assert build.LAUNCHES["correct_sdf_dense"] == 10
+    assert len(windows) == 1
+    assert build.LAUNCHES["correct_sdf_dense"] == len(distance_transform.sweep_plan(windows[0], 10).sweeps) < 10
     cpu = app_fusion.run(sensor, cfg, device="cpu")
     assert card.num_voxels > 500
     np.testing.assert_array_equal(card.coords, cpu.coords)
