@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `intrinsic3d_torch/csrc/` with nvcc
-(one process per source, all at once), then drives the port's two paths.
+(one process per source, all at once), then drives the port's three stages.
 
 The refinement outer step:
 1. drives it once at the benchmark's scale (bench.py: voxel 0.004 m,
@@ -25,14 +25,29 @@ frames at 640x480, voxel 0.004 m, clip bounds +-2.5 radius):
    `app_fusion.run` on the card once as a warm-up (recording the dense
    distance-transform kernel's inputs), then again with the counters zeroed
    just before and read just after, and holds the fused SDF to the analytic
-   sphere;
-6. holds the distance-transform kernel (several sweeps fused per launch)
+   sphere.
+
+The refinement (stage 3 of bench_pipeline.py: 3 grid levels from 4 mm to
+1 mm, 3 pyramid levels, 10 outer iterations each, 5 observations, 50 LM
+tries, 12 CG steps):
+6. refines the measured run's fused grid with `Intrinsic3D.refine` from the
+   sensor's initial poses, the counters zeroed just before and read just
+   after; prints each level's size, plan, iteration times, costs, tries, mu
+   and peak memory (bytes per dense element), and the phase seconds; fails
+   unless the schedule is (2,2) (2,1) (2,0) (1,0) (0,0), every level is
+   dense, no accepted cost rises, every field is finite, the voxel size
+   ends at 1 mm, the bicubic and depth-probe kernels launched, and the
+   refined SDF meets the analytic sphere's bar.
+
+Then:
+7. holds the distance-transform kernel (several sweeps fused per launch)
    against its plain version bit for bit on the path's window and on a
    411x211x501 field (the Lion dataset's crop volume at 4 mm), with its
    sweeps per launch, launches per call and share of its bound, and the
    masked sampler's forward and backward (on no path) on the sampler inputs
    of step 1;
-7. checks a small fusion problem on the card against the CPU path.
+8. checks a small fusion problem and a small refinement (the JAX package's
+   end-to-end scene) on the card against the CPU path.
 
 Prints the card (`nvidia-smi` name and power limit), one line per phase, a
 JSON `{"kernels": [...]}` line, and as the last line
@@ -392,10 +407,12 @@ def fused_sdf_error(grid, center, radius: float):
     return float(np.median(err)), float(np.percentile(err, 90)), int(near.sum())
 
 
-def fusion_phase() -> tuple:
+def fusion_phase() -> dict:
     """Stages 1 and 2 of bench_pipeline.py on the card: a warm-up run that
     records the dense distance-transform kernel's inputs, then the run read
-    for launches and times. Returns (launches, K3 window inputs)."""
+    for launches and times. Returns the launches, the K3 window inputs, and
+    what stage 3 starts from: the fused grid, the sensor, the keyframe ids
+    and the sensor's initial poses and camera."""
     import torch
 
     from intrinsic3d_torch.apps import app_fusion, app_keyframes
@@ -406,6 +423,7 @@ def fusion_phase() -> tuple:
     t0 = time.perf_counter()
     sensor = build_orbit_dataset(**PIPELINE_DATASET)
     dataset_s = time.perf_counter() - t0
+    initial = ([sensor.pose(i).copy() for i in range(sensor.num_frames)], sensor.color_cam)
     center, radius = PIPELINE_DATASET["center"], PIPELINE_DATASET["radius"]
     kcfg, fcfg = pipeline_configs(center=center, radius=radius, **PIPELINE_SETTINGS)
 
@@ -447,7 +465,8 @@ def fusion_phase() -> tuple:
         f"p90 {p90:.6f} m (bar: < {fcfg.voxel_size} m, < {2.5 * fcfg.voxel_size} m)")
     if not (n_near > 1000 and med < fcfg.voxel_size and p90 < 2.5 * fcfg.voxel_size):
         fail("the fused SDF misses the analytic sphere's bar")
-    return launches, win
+    return dict(launches=launches, window=win, grid=grid, sensor=sensor, keyframes=sel.keyframe_ids(),
+                initial=initial)
 
 
 def small_fusion_agrees() -> None:
@@ -472,6 +491,145 @@ def small_fusion_agrees() -> None:
         f"max |d weight|/max weight {errs[1]:.3e}, max |d color| {errs[2]:.3e}")
     if errs[0] > 1e-6 or errs[1] > 1e-5 or errs[2] > 1e-3:
         fail("small fusion: the card's fields differ from the CPU path's")
+
+
+PIPELINE_SCHEDULE = [(2, 2), (2, 1), (2, 0), (1, 0), (0, 0)]
+
+
+def refined_sdf_error(grid, center, radius: float):
+    """On valid voxels with |sdf_refined| < one voxel: the median |refined −
+    analytic sdf|, its p90, the same median of the grid's unrefined `sdf`,
+    and the voxel count (the bar of tests/test_intrinsic3d_e2e.py)."""
+    import numpy as np
+
+    true = np.linalg.norm(grid.voxel_to_world() - np.asarray(center), axis=-1) - radius
+    shell = grid.valid_mask() & (np.abs(grid.sdf_refined) < grid.voxel_size)
+    err = np.abs(grid.sdf_refined[shell] - true[shell])
+    err0 = np.abs(grid.sdf[shell] - true[shell])
+    return float(np.median(err)), float(np.percentile(err, 90)), float(np.median(err0)), int(shell.sum())
+
+
+def refinement_phase(fusion: dict) -> dict:
+    """Stage 3 of bench_pipeline.py on the card: the double coarse-to-fine
+    refinement of the fused grid (3 grid levels × 3 pyramid levels, 10 outer
+    iterations each) from the sensor's initial poses and camera, with the
+    launch counters zeroed just before and read just after. Fails unless the
+    schedule, the costs, the plans, the fields and the sphere's bar hold.
+    Returns the launches and the per-level records."""
+    import numpy as np
+    import torch
+
+    from intrinsic3d_torch.ops import build
+    from intrinsic3d_torch.refine.intrinsic3d import Intrinsic3D
+    from intrinsic3d_torch.synthetic import PIPELINE_CG_ITERS, PIPELINE_DATASET, PIPELINE_REFINEMENT
+
+    sensor = fusion["sensor"]
+    poses, cam = fusion["initial"]
+    for i, pose in enumerate(poses):
+        sensor.set_pose(i, pose)
+    sensor.color_cam = cam
+    levels, stats = [], {}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    engine = Intrinsic3D(PIPELINE_REFINEMENT, sensor, fusion["keyframes"], cg_iters=PIPELINE_CG_ITERS, stats=stats)
+    engine.add_callback(lambda info: levels.append((info.grid_level, info.pyramid_level, info.grid.num_voxels,
+                                                    info.stats)))
+    refined = engine.refine(fusion["grid"], stats=stats)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+
+    log(f"phase refinement: {len(fusion['keyframes'])} keyframes, fused {fusion['grid'].num_voxels} voxels -> "
+        f"refined {refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s")
+    records = []
+    for g, p, nvox, st in levels:
+        per_el = st.peak_bytes / st.elements
+        log(f"  level g{g}p{p}: voxels={nvox} blocks={st.num_blocks} elements={st.elements} plan '{st.reason}'; "
+            f"setup {st.setup_seconds:.3f}s, outer iteration median {statistics.median(st.iter_seconds):.4f}s "
+            f"(min {min(st.iter_seconds):.4f}, max {max(st.iter_seconds):.4f}); cost {st.costs_before[0]:.6f} -> "
+            f"{st.costs_after[-1]:.6f}; tries {st.tries}; mu {st.mus[-1]:.3e}; peak memory "
+            f"{st.peak_bytes / 1e9:.3f} GB = {per_el:.1f} B/element")
+        records.append(dict(level=f"g{g}p{p}", voxels=nvox, blocks=st.num_blocks, elements=st.elements,
+                            reason=st.reason, setup_s=st.setup_seconds, iter_s=st.iter_seconds,
+                            costs_before=st.costs_before, costs_after=st.costs_after, tries=st.tries,
+                            mu=st.mus[-1], peak_bytes=st.peak_bytes, bytes_per_element=per_el))
+    log("  refinement phases (s): " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
+    log(f"  launches {launches}")
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    (REPO / "chiprun_out" / "refinement_levels.json").write_text(json.dumps(
+        dict(total_s=total_s, phases=stats, levels=records, launches=launches), indent=1))
+
+    schedule = [(g, p) for g, p, _, _ in levels]
+    if schedule != PIPELINE_SCHEDULE:
+        fail(f"refinement schedule {schedule}, expected {PIPELINE_SCHEDULE}")
+    for r in records:
+        if not r["reason"].startswith("dense"):
+            fail(f"level {r['level']} was planned '{r['reason']}', not dense")
+        for it, (c0, c1) in enumerate(zip(r["costs_before"], r["costs_after"])):
+            if not (np.isfinite(c0) and np.isfinite(c1)) or c1 > c0:
+                fail(f"level {r['level']} iteration {it}: accepted cost {c1} against {c0}")
+    fields = (refined.sdf_refined, refined.albedo, refined.color, refined.sdf, refined.weight)
+    if not all(np.isfinite(f).all() for f in fields):
+        fail("non-finite refined fields")
+    if not all(np.isfinite(sensor.pose(i)).all() for i in fusion["keyframes"]):
+        fail("non-finite refined poses")
+    if abs(refined.voxel_size - 0.001) > 1e-9:
+        fail(f"final voxel size {refined.voxel_size}, expected 0.001 m")
+    for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was never launched in the pipeline refinement")
+    med, p90, med0, n_shell = refined_sdf_error(refined, PIPELINE_DATASET["center"], PIPELINE_DATASET["radius"])
+    log(f"  refined sdf vs the analytic sphere on {n_shell} shell voxels: median {med:.6f} m, p90 {p90:.6f} m; "
+        f"unrefined median {med0:.6f} m (bar: median < {refined.voxel_size} m and <= 1.1 x unrefined)")
+    if not (n_shell > 1000 and med < refined.voxel_size and med <= 1.1 * med0):
+        fail("the refined SDF misses the analytic sphere's bar")
+    return dict(launches=launches, levels=records, total_s=total_s)
+
+
+def small_refinement_agrees() -> None:
+    """The end-to-end test's scene (5 frames at 96x72, 2 grid and 2 pyramid
+    levels) refined from one fused grid on the card and through the plain CPU
+    path at converged solver settings (float32 coefficients, 100 CG steps,
+    eta 1e-8): per-level costs rtol 1e-3 and equal tries, the same final
+    voxel set, refined sdf within 1e-4 m, albedo within 1e-3 and colors
+    within 0.5 (0..255) on it."""
+    import numpy as np
+
+    from intrinsic3d_torch.apps import app_fusion
+    from intrinsic3d_torch.config import FusionConfig
+    from intrinsic3d_torch.refine.intrinsic3d import Intrinsic3D
+    from intrinsic3d_torch.synthetic import SMALL_REFINEMENT, SMALL_VOXEL, small_refinement_sensor
+
+    fused = app_fusion.run(
+        small_refinement_sensor(), FusionConfig(voxel_size=SMALL_VOXEL, discont_window_size=0), device="cpu"
+    )
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        engine = Intrinsic3D(SMALL_REFINEMENT, small_refinement_sensor(), range(5), cg_iters=100, device=device,
+                             cg_coeff_dtype="float32", cg_eta=1e-8)
+        costs = []
+        engine.add_callback(lambda i: costs.append((i.grid_level, i.pyramid_level, i.stats.costs_before,
+                                                    i.stats.costs_after, i.stats.tries)))
+        out[device] = (costs, engine.refine(fused), time.perf_counter() - t0)
+    (tc, tg, ts), (cc, cg, cs) = out["cuda"], out["cpu"]
+    for a, b in zip(tc, cc):
+        log(f"  small refinement g{a[0]}p{a[1]}: cuda {a[2]} -> {a[3]} tries {a[4]}; cpu {b[2]} -> {b[3]} tries {b[4]}")
+    if [c[:2] for c in tc] != [c[:2] for c in cc] or [c[4] for c in tc] != [c[4] for c in cc]:
+        fail("small refinement: the card's schedule or LM tries differ from the CPU path's")
+    for a, b in zip(tc, cc):
+        if not np.allclose(a[2] + a[3], b[2] + b[3], rtol=1e-3, atol=0):
+            fail(f"small refinement g{a[0]}p{a[1]}: costs on the card {a[2:4]} differ from the CPU path's {b[2:4]}")
+    if tg.voxel_size != cg.voxel_size or not np.array_equal(tg.coords, cg.coords):
+        fail(f"small refinement: voxel sets differ ({tg.num_voxels} on the card, {cg.num_voxels} on the CPU)")
+    errs = (float(np.abs(tg.sdf_refined - cg.sdf_refined).max()), float(np.abs(tg.albedo - cg.albedo).max()),
+            float(np.abs(tg.color - cg.color).max()))
+    log(f"  small refinement: {tg.num_voxels} voxels at {tg.voxel_size} m on both; max |d sdf_refined| "
+        f"{errs[0]:.3e}, max |d albedo| {errs[1]:.3e}, max |d color| {errs[2]:.3e}; card {ts:.2f}s, cpu {cs:.2f}s")
+    if errs[0] > 1e-4 or errs[1] > 1e-3 or errs[2] > 0.5:
+        fail("small refinement: the card's refined fields differ from the CPU path's")
+
 
 
 def main() -> int:
@@ -581,26 +739,39 @@ def main() -> int:
 
     # --- phase 4: keyframes and fusion at bench_pipeline scale; counts zeroed
     # just before the measured run and read just after
-    fusion_launches, window_inputs = fusion_phase()
-    for name, n in fusion_launches.items():
+    fusion = fusion_phase()
+    for name, n in fusion["launches"].items():
         if name != "correct_sdf_dense" and n != 0:
             fail(f"kernel {name} launched {n} times on the fusion path, which has none of it")
 
-    # --- phase 5: the distance-transform kernel and the sampler's second entry
+    # --- phase 5: the refinement of the fused grid at bench_pipeline scale;
+    # counts zeroed just before and read just after
+    refinement = refinement_phase(fusion)
+    for r in records:
+        r["launches_pipeline_refinement"] = refinement["launches"][r["name"]]
+    window_inputs, fusion_launches = fusion["window"], fusion["launches"]
+    del fusion
+    log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
+
+    # --- phase 6: the distance-transform kernel and the sampler's second entry
     # against their plain versions
     rec = check_distance_transform(window_inputs)
-    rec.update(launches=fusion_launches["correct_sdf_dense"], status="ok")
+    rec.update(launches=fusion_launches["correct_sdf_dense"], status="ok",
+               launches_pipeline_refinement=refinement["launches"]["correct_sdf_dense"])
     records.append(rec)
     del window_inputs
     for rec in check_sampler_sample(rows_inputs):
-        rec.update(launches=0, status="ok")  # on no path: launched by its check only
+        rec.update(launches=0, status="ok", launches_pipeline_refinement=refinement["launches"][rec["name"]])
         records.append(rec)
     del rows_inputs
     log("phase kernels: the distance-transform kernel and bicubic_sample agree with their plain versions")
 
-    # --- phase 6: a small fusion problem on the card against the CPU path
+    # --- phase 7: small fusion and refinement problems on the card against the
+    # CPU path
     small_fusion_agrees()
     log("phase check: the card's fusion matches the plain CPU path")
+    small_refinement_agrees()
+    log("phase check: the card's refinement matches the plain CPU path")
 
     if len(records) != 6:
         fail(f"{len(records)} kernel records, expected 6")

@@ -74,7 +74,10 @@ class RefinementConfig:
     fix_intrinsics: bool = False
     fix_distortion: bool = False
     # E_g element layout of the level loop ("auto" / "always" / "never" /
-    # "capped"); the port's slice runs the dense layout only
+    # "capped"), planned by refine.optimizer.plan_eg_layout with the JAX
+    # package's rules. Levels planned dense run; a plan for frame buckets or
+    # streamed linearization raises NotImplementedError (that element
+    # transport is not ported yet)
     frame_bucketing: str = "auto"
     # eliminate the dense global block {poses, intrinsics, distortion} from
     # the PCG through its damped Gram matrix (refine/solver.py)

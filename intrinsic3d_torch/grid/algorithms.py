@@ -1,23 +1,32 @@
-"""Grid-level SDF algorithms: distance-transform correction and cleanup.
+"""Grid-level SDF algorithms: distance-transform correction, cleanup,
+thin-shell sparsification and the 2× upsample.
 
-Counterpart of the fusion-stage part of `intrinsic3d_tpu/grid/algorithms.py`
-(reference ``libintrinsic3d/src/sdf/algorithms.cpp``). `correct_sdf` takes
-one of two routes by the JAX package's own size rule: on the card, when the
-grid's dense bounding box holds at most 300 M voxels, the sparse grid is
-scattered into that box on the device and corrected by the dense sweep
-kernel (`ops.distance_transform.correct_sdf_dense`); otherwise the Jacobi
-sweeps gather over a 26-neighbour index table. Both reach the same fixed
-point. The thin-shell sparsification and the 2× upsample wait for the
-port's level driver.
+Counterpart of `intrinsic3d_tpu/grid/algorithms.py` (reference
+``libintrinsic3d/src/sdf/algorithms.cpp``). `correct_sdf` takes one of two
+routes by the JAX package's own size rule: on the card, when the grid's
+dense bounding box holds at most 300 M voxels, the sparse grid is scattered
+into that box on the device and corrected by the dense sweep kernel
+(`ops.distance_transform.correct_sdf_dense`); otherwise the Jacobi sweeps
+gather over a 26-neighbour index table. Both reach the same fixed point.
+`clear_voxels_outside_thin_shell` takes its routes by the same rule (shifted
+ORs and a max-pool over the dense box on the card, neighbour tables on the
+host), and `upsample` is host numpy, bitwise the JAX package's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from intrinsic3d_torch.device import resolve_device
-from intrinsic3d_torch.grid.voxel_grid import VoxelGrid, full_neighborhood_offsets
+from intrinsic3d_torch.grid.voxel_grid import (
+    RING6_OFFSETS,
+    VoxelGrid,
+    find_indices,
+    full_neighborhood_offsets,
+    pack_coords,
+)
 from intrinsic3d_torch.ops.distance_transform import correct_sdf_dense
 
 _NB26 = full_neighborhood_offsets(1)
@@ -116,3 +125,203 @@ def apply_refined_sdf(grid: VoxelGrid) -> VoxelGrid:
     """`sdf ← sdf_refined` (``algorithms.cpp:250-257``)."""
     grid.sdf = grid.sdf_refined.copy()
     return grid
+
+
+# ---------------------------------------------------------------------------
+# Thin-shell sparsification
+# ---------------------------------------------------------------------------
+
+# the reference's keep-stencil: 6-ring plus (+2,0,0),(0,+2,0),(0,0,+2)
+# (``algorithms.cpp:380-385``) — the forward-difference support of E_g
+_SHELL_SUPPORT = np.concatenate([RING6_OFFSETS, np.array([[2, 0, 0], [0, 2, 0], [0, 0, 2]], np.int32)], axis=0)
+_NB_CROSS = full_neighborhood_offsets(2)
+
+
+def _thin_shell_keep_table(grid: VoxelGrid, thres_shell: float) -> np.ndarray:
+    """Host route: the keep mask from the 9-offset support table and, for
+    the voxels not yet kept, the 124-neighbour zero-crossing table."""
+    sdfr = grid.sdf_refined
+    core = grid.valid_mask() & (np.abs(sdfr) <= thres_shell)
+    keep = core.copy()
+    touched = grid.neighbor_table(_SHELL_SUPPORT)[core].reshape(-1)
+    keep[touched[touched >= 0]] = True
+    rest = np.flatnonzero(~keep)
+    if len(rest):
+        nb_idx = find_indices(grid.keys, grid.coords[rest][:, None, :] + _NB_CROSS[None, :, :])  # [M, 124]
+        present = nb_idx >= 0
+        nb_sdf = sdfr[np.maximum(nb_idx, 0)]
+        has_pos = np.any(present & (nb_sdf >= 0.0), axis=-1)
+        has_neg = np.any(present & (nb_sdf < 0.0), axis=-1)
+        keep[rest[np.where(sdfr[rest] < 0.0, has_pos, has_neg)]] = True
+    return keep
+
+
+def _thin_shell_keep_dense(grid: VoxelGrid, thres_shell: float, dev: torch.device) -> np.ndarray:
+    """Dense route: the grid scattered into its bounding box (plus a 2-voxel
+    margin) on `dev`. The support is 9 shifted ORs of the core mask
+    (keep[u] ⇐ core[u − off]); the zero-crossing test is a 5³ max-pool over
+    the sign masks of the present voxels. The pool includes the center,
+    which cannot fake a crossing: a voxel's own sign never tests against
+    itself. The shell threshold is compared in float64, as on the host."""
+    lo, dims = _dense_box(grid)
+    lo = lo - 2
+    shape = tuple(int(d) + 4 for d in dims)
+    c = torch.as_tensor(grid.coords - lo, dtype=torch.int64, device=dev)
+    flat = (c[:, 0] * shape[1] + c[:, 1]) * shape[2] + c[:, 2]
+    sdfr = torch.as_tensor(grid.sdf_refined, dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(grid.valid_mask(), device=dev)
+
+    def dense(vals):
+        out = torch.zeros(shape, dtype=vals.dtype, device=dev)
+        out.view(-1)[flat] = vals
+        return out
+
+    core = dense(valid & (torch.abs(sdfr).to(torch.float64) <= thres_shell))
+    keep = core.clone()
+    nx, ny, nz = shape
+    for ox, oy, oz in _SHELL_SUPPORT.tolist():
+        # keep[u] |= core[u - off]; the 2-voxel margin keeps every source in the box
+        keep[max(ox, 0) : nx + min(ox, 0), max(oy, 0) : ny + min(oy, 0), max(oz, 0) : nz + min(oz, 0)] |= core[
+            max(-ox, 0) : nx + min(-ox, 0), max(-oy, 0) : ny + min(-oy, 0), max(-oz, 0) : nz + min(-oz, 0)
+        ]
+    pos = dense(sdfr >= 0.0).to(torch.float32)
+    neg = dense(sdfr < 0.0).to(torch.float32)
+    pool = lambda m: F.max_pool3d(m[None, None], kernel_size=5, stride=1, padding=2)[0, 0] > 0.0  # noqa: E731
+    crossing = torch.where(dense(sdfr < 0.0), pool(pos), pool(neg))
+    return (keep | crossing).view(-1)[flat].cpu().numpy()
+
+
+def clear_voxels_outside_thin_shell(
+    grid: VoxelGrid, thres_shell: float, dense: bool | None = None, device="cuda"
+) -> VoxelGrid:
+    """Keep (a) valid voxels with |sdf_refined| ≤ thres plus their stencil
+    support, and (b) voxels with a zero-crossing in their 5³ neighbourhood
+    (``algorithms.cpp:368-458``). `dense=None` picks the route by
+    `correct_sdf`'s rule: the dense box on the card when `0 < box ≤
+    DENSE_MAX_VOXELS`, the host neighbour tables otherwise. Both routes keep
+    the same voxel set (the predicate is boolean)."""
+    dev = resolve_device(device)
+    if grid.num_voxels == 0:
+        return grid
+    if dense is None:
+        vol = int(np.prod(_dense_box(grid)[1] + 4))
+        dense = dev.type == "cuda" and 0 < vol <= DENSE_MAX_VOXELS
+    keep = _thin_shell_keep_dense(grid, thres_shell, dev) if dense else _thin_shell_keep_table(grid, thres_shell)
+    return grid.select(keep)
+
+
+# ---------------------------------------------------------------------------
+# Trilinear resampling and 2× upsample (host numpy, copies of the JAX
+# package's functions with their accumulation order)
+# ---------------------------------------------------------------------------
+
+_CORNER_OFFS = np.array(
+    [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [0, 1, 1], [1, 0, 1], [1, 1, 1]],
+    np.int32,
+)
+
+
+def interpolate_fields(grid: VoxelGrid, positions: np.ndarray) -> dict:
+    """Trilinear interpolation of all voxel fields at continuous grid
+    positions `[M, 3]` (``algorithms.cpp:118-199``): invalid corners get zero
+    weight; ≤ 4 valid corners zero the interpolated weight. Returns a dict
+    of field arrays."""
+    pos = np.asarray(positions, np.float64)
+    base = np.floor(pos).astype(np.int64)
+    frac = (pos - base).astype(np.float32)
+    corners = base[:, None, :] + _CORNER_OFFS[None, :, :]  # [M, 8, 3]
+    w = np.where(_CORNER_OFFS[None, :, :] == 1, frac[:, None, :], 1.0 - frac[:, None, :]).prod(axis=-1)
+    idx = grid.lookup(corners)  # [M, 8]
+    valid = (idx >= 0) & (grid.weight[np.maximum(idx, 0)] > 0.0)
+    w = np.where(valid, w, 0.0)
+    cnt = valid.sum(axis=-1)
+    wsum = w.sum(axis=-1)
+    wsafe = np.where(wsum > 0.0, wsum, 1.0)
+
+    def avg(field):
+        vals = field[np.maximum(idx, 0)]
+        if vals.ndim == 3:
+            return (vals * w[..., None]).sum(axis=1) / wsafe[:, None]
+        return (vals * w).sum(axis=1) / wsafe
+
+    out = {
+        "sdf": avg(grid.sdf.astype(np.float32)),
+        "color": avg(grid.color),
+        "weight": np.maximum(np.where(cnt > 4, avg(grid.weight), 0.0), 0.0),
+    }
+    if grid.is_sbr:
+        out["albedo"] = avg(grid.albedo)
+        out["sdf_refined"] = avg(grid.sdf_refined)
+    return out
+
+
+# Per-(child, corner) trilinear weights of the 2× upsample: child c sits at
+# parent + offs_c/2, so every child of a parent reads the same 8 corners with
+# weights 0.5^popcount — a fixed [8, 8] table, binary-exact, so the result is
+# bitwise `interpolate_fields` at the child positions
+_UP_W8 = np.where(
+    _CORNER_OFFS[None, :, :] == 1,
+    (_CORNER_OFFS[:, None, :] * 0.5).astype(np.float32),
+    (1.0 - _CORNER_OFFS[:, None, :] * 0.5).astype(np.float32),
+).prod(axis=-1)  # [child c, corner k]
+
+
+def _upsample_fields(grid: VoxelGrid) -> dict:
+    """Field resampling of `upsample`: one 8-corner lookup per parent and the
+    fixed `_UP_W8` table. The corner sums follow numpy's own reduction order
+    in `interpolate_fields` — the pairwise tree ((0+1)+(2+3))+((4+5)+(6+7))
+    for scalar fields, sequential for color — so both stay bitwise equal."""
+    parent = grid.coords.astype(np.int64)
+    idx = grid.lookup(parent[:, None, :] + _CORNER_OFFS[None, :, :])  # [N, 8]
+    valid = (idx >= 0) & (grid.weight[np.maximum(idx, 0)] > 0.0)
+    w = np.where(valid[:, None, :], _UP_W8[None, :, :], 0.0)  # [N, c, k]
+    cnt = valid.sum(axis=-1)  # the same for all 8 children of a parent
+    wsum = w.sum(axis=-1)  # [N, c]
+    wsafe = np.where(wsum > 0.0, wsum, 1.0)
+
+    def avg(field):
+        vals = field[np.maximum(idx, 0)]  # [N, 8] or [N, 8, 3]
+        if vals.ndim == 3:
+            s = vals[:, None, 0, :] * w[:, :, 0, None]
+            for k in range(1, 8):
+                s = s + vals[:, None, k, :] * w[:, :, k, None]
+            return (s / wsafe[..., None]).reshape(-1, 3)
+
+        def term(k):
+            return vals[:, None, k] * w[:, :, k]
+
+        pair = [term(2 * i) + term(2 * i + 1) for i in range(4)]
+        s = (pair[0] + pair[1]) + (pair[2] + pair[3])
+        return (s / wsafe).reshape(-1)
+
+    out = {
+        "sdf": avg(grid.sdf.astype(np.float32)),
+        "color": avg(grid.color),
+        "weight": np.maximum(
+            np.where((cnt > 4)[:, None], avg(grid.weight).reshape(len(parent), 8), 0.0), 0.0
+        ).reshape(-1),
+    }
+    if grid.is_sbr:
+        out["albedo"] = avg(grid.albedo)
+        out["sdf_refined"] = avg(grid.sdf_refined)
+    return out
+
+
+def upsample(grid: VoxelGrid) -> VoxelGrid:
+    """2× refinement: each voxel spawns 8 children at half the voxel size,
+    fields trilinearly resampled from the parent grid
+    (``algorithms.cpp:202-237``). Host numpy."""
+    parent = grid.coords.astype(np.int64)
+    child_coords = ((2 * parent)[:, None, :] + _CORNER_OFFS[None, :, :]).reshape(-1, 3)
+    up = VoxelGrid.from_coords(grid.voxel_size * 0.5, child_coords, grid.depth_min, grid.depth_max, sbr=grid.is_sbr)
+    # from_coords sorted the children by key; the fields follow the same order
+    order = np.argsort(pack_coords(child_coords), kind="stable")
+    fields = _upsample_fields(grid)
+    up.sdf = fields["sdf"][order].astype(np.float32)
+    up.weight = fields["weight"][order].astype(np.float32)
+    up.color = fields["color"][order].astype(np.float32)
+    if grid.is_sbr:
+        up.albedo = fields["albedo"][order].astype(np.float32)
+        up.sdf_refined = fields["sdf_refined"][order].astype(np.float32)
+    up.integration_weight_sample = grid.integration_weight_sample
+    return up

@@ -1,4 +1,4 @@
-"""Math helpers: robust kernel, SDF weight, angle-axis poses.
+"""Math helpers: robust kernel, SDF weight, λ schedule, angle-axis poses.
 
 Torch counterpart of `intrinsic3d_tpu/mathutil.py` (reference
 ``libintrinsic3d/src/math.cpp:43-179``). The pose-matrix conversions are
@@ -21,6 +21,19 @@ def sdf_to_weight(sdf, truncation):
     """Closeness-to-isosurface weight in [0.01, 1] (``operators.cpp:142-147``)."""
     a = torch.clamp(torch.abs(sdf), max=truncation) / truncation
     return torch.clamp(1.0 - a, 0.01, 1.0)
+
+
+def compute_varying_lambda(iteration, num_iterations, lambda0, lambda1):
+    """Linear schedule between lambda0 and lambda1 (``cost.h:130-143``)."""
+    if num_iterations <= 1:
+        return lambda0
+    step = (lambda1 - lambda0) / float(num_iterations - 1)
+    return lambda0 + step * float(iteration)
+
+
+def pyramid_level_to_scale(lvl: int) -> float:
+    """`2^-lvl` (``cost.h:146-150``)."""
+    return 1.0 / (2.0**lvl)
 
 
 def rotate_angle_axis(aa, pts):

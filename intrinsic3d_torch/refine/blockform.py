@@ -16,21 +16,28 @@ pass with a ones cotangent (elements are independent); the GN matvec, its
 transpose, the gradient and the Jacobi diagonal are then dense elementwise
 math over the coefficient fields plus shift-plan gathers.
 
-Not in this slice: frame buckets (`bmap`), the streamed
-`linearize_block_chunked`/`block_total_cost`, the frame-bucket construction and
-the flat-table bridge `to_block_problem`.
+The frame-bucket construction (`build_frame_buckets`, host numpy) is here as
+the level planner's decision input; the bucketed element transport (`bmap`
+in the residuals and linearization), the streamed
+`linearize_block_chunked`/`block_total_cost` and the flat-table bridge
+`to_block_problem` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import logging
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout, ShiftPlan, build_shift_plan, pad_flat
 from intrinsic3d_torch.grid.voxel_grid import EG_ALBEDO_OFFSETS, EG_SDF_OFFSETS
+from intrinsic3d_torch.mathutil import pose_vec_to_matrix
 from intrinsic3d_torch.refine.residuals import Params, eg_core
+
+log = logging.getLogger("intrinsic3d")
 
 # sdf plan: the 10 E_g forward-difference offsets + the three −axis offsets
 # (completing the ±6-ring of the E_r Laplacian and its diagonal)
@@ -420,3 +427,221 @@ def layout_plans(layout: BlockLayout, device="cuda") -> Tuple[ShiftPlan, ShiftPl
             build_shift_plan(layout, ALB_OFFSETS, dev),
         )
     return cache[key]
+
+
+def params_from_block(layout: BlockLayout, bparams: Params) -> Params:
+    """Block-dense parameters → table-order Params."""
+    return bparams._replace(
+        sdf=dense_to_table(layout, bparams.sdf),
+        albedo=dense_to_table(layout, bparams.albedo),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Frame bucket construction (host numpy; the level planner's decision input)
+# ---------------------------------------------------------------------------
+
+
+def _depth_interval_mips(depth: np.ndarray):
+    """Conservative min/max mip pyramid of a depth map (invalid = 0 pixels
+    carry +inf/-inf so they never shrink the interval). Level l cell (i, j)
+    bounds the valid depths of pixels [i·2^l, (i+1)·2^l) × [j·2^l, ...)."""
+    valid = depth > 0.0
+    dmin = np.where(valid, depth, np.inf).astype(np.float64)
+    dmax = np.where(valid, depth, -np.inf).astype(np.float64)
+    mips = [(dmin, dmax)]
+    while max(dmin.shape) > 1:
+        h, w = dmin.shape
+        ph, pw = (h + 1) // 2 * 2, (w + 1) // 2 * 2
+
+        def pool(a, f, fill):
+            p = np.full((ph, pw), fill, a.dtype)
+            p[:h, :w] = a
+            return f(f(p.reshape(ph // 2, 2, pw // 2, 2), axis=3), axis=1)
+
+        dmin = pool(dmin, np.min, np.inf)
+        dmax = pool(dmax, np.max, -np.inf)
+        mips.append((dmin, dmax))
+    return mips
+
+
+def _footprint_depth_interval(mips, u0, u1, v0, v1):
+    """Per-block [Dmin, Dmax] of valid depths inside pixel rects: at the mip
+    level where each rect spans ≤ 2×2 cells, the ≤ 4 cells combined —
+    conservative, since cells round outward."""
+    n = len(u0)
+    dmin = np.full(n, np.inf)
+    dmax = np.full(n, -np.inf)
+    span = np.maximum(u1 - u0, v1 - v0)
+    lvl = np.clip(np.ceil(np.log2(np.maximum(span, 1))).astype(int), 0, len(mips) - 1)
+    for lv in np.unique(lvl):
+        sel = lvl == lv
+        mn, mx = mips[lv]
+        h, w = mn.shape
+        i0 = np.clip(v0[sel] >> lv, 0, h - 1)
+        j0 = np.clip(u0[sel] >> lv, 0, w - 1)
+        i1 = np.clip(i0 + 1, 0, h - 1)
+        j1 = np.clip(j0 + 1, 0, w - 1)
+        dmin[sel] = np.minimum(np.minimum(mn[i0, j0], mn[i0, j1]), np.minimum(mn[i1, j0], mn[i1, j1]))
+        dmax[sel] = np.maximum(np.maximum(mx[i0, j0], mx[i0, j1]), np.maximum(mx[i1, j0], mx[i1, j1]))
+    return dmin, dmax
+
+
+def bucket_ladder_up(x: int, step: int = 8) -> int:
+    """Smallest rung ≥ x of the geometric bucket-width ladder: multiples of
+    `step` growing by ~1.25× (8, 16, 24, 32, 40, 56, 72, 96, 120, 152, …)."""
+    r = step
+    while r < x:
+        r = max(r + step, -(-int(r * 1.25) // step) * step)
+    return r
+
+
+def bucket_ladder_down(x: int, step: int = 8) -> int:
+    """Largest rung ≤ x (≥ step) — quantizes the hard-trim cap to a rung."""
+    if x <= step:
+        return step
+    r = prev = step
+    while r <= x:
+        prev = r
+        r = max(r + step, -(-int(r * 1.25) // step) * step)
+    return prev
+
+
+def build_frame_buckets(
+    layout: BlockLayout,
+    poses6: np.ndarray,  # [K, 6] world→cam angle-axis + t
+    intr4: np.ndarray,  # [4] fx fy cx cy at the target pyramid level
+    width: int,
+    height: int,
+    voxel_size: float,
+    margin_px: float = 48.0,
+    round_to: int = 8,
+    depths: Optional[np.ndarray] = None,  # [K, H, W] level depth maps
+    occlusion: float = 0.0,
+    depth_slack: float = 0.05,
+    max_frames_per_block: int = 0,
+    max_blocks_per_frame: int = 0,
+    protect_cover: int = 0,
+    stats: Optional[dict] = None,
+) -> np.ndarray:
+    """Per-frame visible-block lists from block-AABB frustum projection
+    (host numpy copy of the JAX function; see its docstring for the full
+    argument).
+
+    Frame k's bucket is every block whose 8 AABB corners project (pinhole)
+    into the image rect inflated by `margin_px`; blocks straddling z ≈ 0 are
+    always kept. With `depths`, blocks whose camera-z interval misses the
+    valid-depth interval of their pixel footprint (inflated by `occlusion +
+    depth_slack`) are dropped — they can hold only weight-0 elements.
+    `max_frames_per_block` keeps each block's M closest frames;
+    `max_blocks_per_frame` trims each frame's bucket to M blocks
+    (straddling, then cover-protected, then least-redundant, then
+    best-scoring blocks survive), reporting `trimmed_pairs` and
+    `uncovered_blocks` in `stats`. Returns `bmap [K, NBc] int32`, its width
+    on the bucket ladder, padded with `num_blocks` (the pad row)."""
+    nb = layout.num_blocks
+    b = layout.block
+    fx, fy, cx, cy = (float(v) for v in np.asarray(intr4, np.float64))
+    lo = np.asarray(layout.block_coords, np.float64) * b * voxel_size
+    sel = np.array([[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)], np.float64)  # [8, 3] ∈ {0,1}
+    corners = lo[:, None, :] + sel[None, :, :] * (b * voxel_size)  # [nb, 8, 3]
+
+    buckets = []
+    scores = []  # per frame: [nb] score of observable blocks (0 = not in bucket)
+    for ki, pose in enumerate(np.asarray(poses6, np.float64)):
+        t_mat = pose_vec_to_matrix(pose)
+        pc = corners @ np.asarray(t_mat)[:3, :3].T + np.asarray(t_mat)[:3, 3]
+        z = pc[..., 2]
+        front = z > 1e-4
+        any_front = np.any(front, axis=1)
+        straddle = any_front & np.any(~front, axis=1)
+        zs = np.where(front, z, 1.0)
+        u = fx * pc[..., 0] / zs + cx
+        v = fy * pc[..., 1] / zs + cy
+        big = 1e18
+        u_min = np.min(np.where(front, u, big), axis=1)
+        u_max = np.max(np.where(front, u, -big), axis=1)
+        v_min = np.min(np.where(front, v, big), axis=1)
+        v_max = np.max(np.where(front, v, -big), axis=1)
+        in_rect = (
+            (u_max >= -margin_px)
+            & (u_min <= width - 1 + margin_px)
+            & (v_max >= -margin_px)
+            & (v_min <= height - 1 + margin_px)
+        )
+        keep = (any_front & in_rect) | straddle
+        z_lo = np.min(np.where(front, z, big), axis=1)
+        z_hi = np.max(np.where(front, z, -big), axis=1)
+
+        if depths is not None:
+            mips = _depth_interval_mips(np.asarray(depths[ki]))
+            pad = 0.5 * margin_px  # pose-drift slack on the pixel side
+            u0 = np.clip(np.floor(u_min - pad).astype(np.int64), 0, width - 1)
+            u1 = np.clip(np.ceil(u_max + pad).astype(np.int64), 0, width - 1)
+            v0 = np.clip(np.floor(v_min - pad).astype(np.int64), 0, height - 1)
+            v1 = np.clip(np.ceil(v_max + pad).astype(np.int64), 0, height - 1)
+            dmin, dmax = _footprint_depth_interval(mips, u0, u1, v0, v1)
+            slack = occlusion + depth_slack
+            observable = (dmin - slack <= z_hi) & (dmax + slack >= z_lo)
+            # blocks straddling z≈0 keep their conservative free pass
+            keep = (keep & observable) | straddle
+
+        buckets.append(np.flatnonzero(keep))
+        if max_frames_per_block > 0 or max_blocks_per_frame > 0:
+            s = np.where(keep, 1.0 / np.maximum(0.5 * (z_lo + z_hi), 1e-3) ** 2, 0.0)
+            scores.append(np.where(straddle, np.inf, s))
+
+    if max_frames_per_block > 0 and len(buckets) > max_frames_per_block:
+        m = max_frames_per_block
+        sc = np.stack(scores, axis=0)  # [K, nb]
+        # per block: keep the M best-scoring frames (ties -> lower frame id)
+        order = np.argsort(-sc, axis=0, kind="stable")  # [K, nb]
+        rank = np.empty_like(order)
+        np.put_along_axis(rank, order, np.arange(len(buckets))[:, None], axis=0)
+        keep_kb = (rank < m) & (sc > 0.0)
+        buckets = [np.flatnonzero(keep_kb[k]) for k in range(len(buckets))]
+
+    if max_blocks_per_frame > 0:
+        sc = np.stack(scores, axis=0)  # [K, nb]
+        m = max_blocks_per_frame
+        cover = np.zeros(nb, np.int64)
+        for bk in buckets:
+            cover[bk] += 1
+        dropped = 0
+        excess = [max(0, len(bk) - m) for bk in buckets]
+        for k in np.argsort(-np.asarray(excess), kind="stable"):
+            bk = buckets[k]
+            if len(bk) <= m:
+                continue
+            s_k = sc[k, bk]
+            # keep priority (first m survive): straddle (∞ score) > blocks at
+            # or below the protected cover > least-redundantly-covered >
+            # higher view score. np.lexsort: the LAST key is primary.
+            straddle_k = np.isinf(s_k)
+            protected = (cover[bk] <= protect_cover) & ~straddle_k
+            keep_rank = np.lexsort((-s_k, cover[bk], (~protected).astype(np.int8), (~straddle_k).astype(np.int8)))
+            keep = bk[keep_rank[:m]]
+            drop = bk[keep_rank[m:]]
+            cover[drop] -= 1
+            dropped += len(drop)
+            buckets[k] = np.sort(keep)
+        uncovered = int(nb - np.count_nonzero(cover))
+        if stats is not None:
+            stats["trimmed_pairs"] = dropped
+            stats["uncovered_blocks"] = uncovered
+        if dropped:
+            log.warning(
+                "  frame buckets: memory budget trimmed %d (block, frame) pairs to %d blocks/frame "
+                "(cover-protected at %d frames/block); %d/%d blocks lost all frames",
+                dropped, m, protect_cover, uncovered, nb,
+            )
+
+    nbc = max((len(bk) for bk in buckets), default=1)
+    # the bucket width on the geometric ladder, capped at the dense width nb
+    # (rounded to round_to); padding entries index the pad block
+    cap = max(round_to, -(-nb // round_to) * round_to)
+    nbc = min(bucket_ladder_up(max(nbc, 1), round_to), cap)
+    bmap = np.full((len(buckets), nbc), nb, np.int32)
+    for k, bk in enumerate(buckets):
+        bmap[k, : min(len(bk), nbc)] = bk[:nbc]
+    return bmap

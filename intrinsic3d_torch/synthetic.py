@@ -300,3 +300,40 @@ def pipeline_configs(
         clip_z0=float(c[2] - r), clip_z1=float(c[2] + r),
     )
     return KeyframesConfig(window_size=window_size, filename=""), fusion
+
+
+# Stage 3 of bench_pipeline.py (bench_pipeline.py:182-199) at its defaults: 3
+# grid levels (4 mm → 1 mm) × 3 pyramid levels, 10 outer iterations a level,
+# top-5 observations, 50 LM tries, poses refined, intrinsics and distortion
+# fixed; Intrinsic3D's 12 CG steps
+PIPELINE_REFINEMENT = RefinementConfig(
+    num_grid_levels=3, num_rgbd_levels=3, num_observations=5, occlusion_distance=0.02, iterations=10,
+    lm_steps=50, lambda_g=0.2, lambda_r0=80.0, lambda_r1=10.0, lambda_s0=120.0, lambda_s1=10.0, lambda_a=0.1,
+    fix_poses=False, fix_intrinsics=True, fix_distortion=True, frame_bucketing="auto",
+)
+PIPELINE_CG_ITERS = 12
+
+# The scene of the JAX package's end-to-end test (tests/test_intrinsic3d_e2e.py):
+# five views of the default sphere at 96×72, fused at 2 cm, refined over 2
+# grid and 2 pyramid levels
+SMALL_EYES = ([0.0, 0.0, 0.0], [0.4, 0.05, 0.2], [-0.35, -0.1, 0.25], [0.1, 0.4, 0.15], [-0.1, -0.4, 0.2])
+SMALL_VOXEL = 0.02
+SMALL_REFINEMENT = RefinementConfig(
+    num_grid_levels=2, num_rgbd_levels=2, iterations=3, lm_steps=8, num_observations=3, occlusion_distance=0.04,
+    subvolume_size_sh=0.3, lambda_r0=20.0, lambda_r1=10.0, lambda_s0=20.0, lambda_s1=10.0,
+    fix_poses=True, fix_intrinsics=True, fix_distortion=True,
+)
+SMALL_CG_ITERS = 10
+
+
+def small_refinement_sensor() -> MemorySensor:
+    """The end-to-end test's capture: Lambertian SH shading of the default
+    albedo on the default sphere, gray RGB in [0, 1]. Host numpy."""
+    cam = Camera.create(90.0, 90.0, 47.5, 35.5, 96, 72)
+    poses = [look_at_pose(e, DEFAULT_CENTER) for e in SMALL_EYES]
+    colors, depths = [], []
+    for T in poses:
+        img, depth = render_shading_image(cam, T, DEFAULT_CENTER, DEFAULT_RADIUS, DEFAULT_LIGHT)
+        colors.append(np.stack([np.clip(img, 0.0, 1.0)] * 3, axis=-1))
+        depths.append(depth)
+    return MemorySensor(cam, cam, colors, depths, poses, 0.1, 2.0)

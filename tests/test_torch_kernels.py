@@ -204,6 +204,46 @@ def test_fusion_on_the_card_matches_the_cpu_path(cuda_device, monkeypatch):
     np.testing.assert_allclose(card.color, cpu.color, atol=1e-3)
 
 
+@pytest.mark.cuda
+def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
+    """The JAX package's end-to-end scene (5 frames at 96×72, 2 grid and 2
+    pyramid levels) refined from one fused grid on the card (K1, K2) and on
+    the CPU (their plain versions) at converged solver settings (float32
+    coefficients, 100 CG steps, η = 1e-8): the same schedule and LM tries,
+    per-level costs rtol 1e-3, the same final voxel set, refined sdf atol
+    1e-4 m, albedo atol 1e-3 and color atol 0.5 (0..255) — reductions in
+    another order, compounded over 9 outer iterations and a recoloring."""
+    from intrinsic3d_torch.apps import app_fusion
+    from intrinsic3d_torch.config import FusionConfig
+    from intrinsic3d_torch.refine.intrinsic3d import Intrinsic3D
+    from intrinsic3d_torch.synthetic import SMALL_REFINEMENT, SMALL_VOXEL, small_refinement_sensor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fused = app_fusion.run(
+        small_refinement_sensor(), FusionConfig(voxel_size=SMALL_VOXEL, discont_window_size=0), device="cpu"
+    )
+    runs = {}
+    for device in ("cuda", "cpu"):
+        engine = Intrinsic3D(SMALL_REFINEMENT, small_refinement_sensor(), range(5), cg_iters=100, device=device,
+                             cg_coeff_dtype="float32", cg_eta=1e-8)
+        levels = []
+        engine.add_callback(lambda i: levels.append((i.grid_level, i.pyramid_level, i.stats)))
+        build.reset_launches()
+        runs[device] = (levels, engine.refine(fused), dict(build.LAUNCHES))
+    (tl, tg, tn), (cl, cg, cn) = runs["cuda"], runs["cpu"]
+    assert tn["bicubic_rows_fwdgrad"] > 0 and tn["bicubic_rows_fwd"] > 0 and tn["nearest_rows"] > 0
+    assert cn == NO_LAUNCHES
+    assert [lv[:2] for lv in tl] == [lv[:2] for lv in cl] == [(1, 1), (1, 0), (0, 0)]
+    for (_, _, a), (_, _, b) in zip(tl, cl):
+        assert a.tries == b.tries
+        np.testing.assert_allclose(a.costs_before + a.costs_after, b.costs_before + b.costs_after, rtol=1e-3)
+    assert tg.voxel_size == cg.voxel_size == SMALL_VOXEL / 2
+    np.testing.assert_array_equal(tg.coords, cg.coords)
+    np.testing.assert_allclose(tg.sdf_refined, cg.sdf_refined, atol=1e-4)
+    np.testing.assert_allclose(tg.albedo, cg.albedo, atol=1e-3)
+    np.testing.assert_allclose(tg.color, cg.color, atol=0.5)
+
+
 # ---------------------------------------------------------------------------
 # What runs without a card
 # ---------------------------------------------------------------------------
