@@ -33,21 +33,40 @@ tries, 12 CG steps):
 6. refines the measured run's fused grid with `Intrinsic3D.refine` from the
    sensor's initial poses, the counters zeroed just before and read just
    after; prints each level's size, plan, iteration times, costs, tries, mu
-   and peak memory (bytes per dense element), and the phase seconds; fails
+   and peak memory (bytes per dense element), the phase seconds and how far
+   the poses moved from the true ones (printed, not checked); fails
    unless the schedule is (2,2) (2,1) (2,0) (1,0) (0,0), every level is
    dense, no accepted cost rises, every field is finite, the voxel size
    ends at 1 mm, the bicubic and depth-probe kernels launched, and the
    refined SDF meets the analytic sphere's bar.
 
+Many keyframes (bench_pipeline.py --frames 90: the same orbit with 90
+frames, so 30 keyframes; the finest level's dense E_g elements exceed the
+card's budget):
+7. runs keyframes and fusion, then refines the fused grid with
+   `Intrinsic3D.refine` as in step 6, the counters zeroed just before and
+   read just after; prints each level's plan (bucket blocks, chunks) and the
+   budget arithmetic of every bucketed level; fails unless step 6's bars
+   hold, the finest level is frame-bucketed by the planner's own rules and
+   no level is frame-capped where one-frame chunks of its exact buckets fit;
+8. from the recorded start of a level, runs 2 outer iterations twice: at
+   2 mm, bucketed one-shot against streamed in 2 chunks; at the finest level
+   (whose exact buckets do not fit one-shot), the planner's chunks against
+   twice as many; with float32 coefficients the pair must agree (first cost
+   rtol 1e-4, trajectory rtol 2e-2), with the production bfloat16 ones the
+   difference is printed;
+9. holds the bicubic and depth-probe kernels against their plain versions
+   on the sampler inputs of the finest bucketed level's first call.
+
 Then:
-7. holds the distance-transform kernel (several sweeps fused per launch)
-   against its plain version bit for bit on the path's window and on a
-   411x211x501 field (the Lion dataset's crop volume at 4 mm), with its
-   sweeps per launch, launches per call and share of its bound, and the
-   masked sampler's forward and backward (on no path) on the sampler inputs
-   of step 1;
-8. checks a small fusion problem and a small refinement (the JAX package's
-   end-to-end scene) on the card against the CPU path.
+10. holds the distance-transform kernel (several sweeps fused per launch)
+    against its plain version bit for bit on the path's window and on a
+    411x211x501 field (the Lion dataset's crop volume at 4 mm), with its
+    sweeps per launch, launches per call and share of its bound, and the
+    masked sampler's forward and backward (on no path) on the sampler
+    inputs of step 1;
+11. checks a small fusion problem and a small refinement (the JAX
+    package's end-to-end scene) on the card against the CPU path.
 
 Prints the card (`nvidia-smi` name and power limit), one line per phase, a
 JSON `{"kernels": [...]}` line, and as the last line
@@ -57,6 +76,7 @@ CUDA device is available. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -212,7 +232,7 @@ def check_kernels(captured: dict) -> list:
         records.append(dict(
             name=f"bicubic_rows_{tag}", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
             replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:" + ("490" if with_grad else "473"),
-            max_abs_err=abs_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            elements=m, active=n_act, max_abs_err=abs_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None,
         ))
 
@@ -238,8 +258,8 @@ def check_kernels(captured: dict) -> list:
         f"bound_ms={b_ms:.4f} ({b_by})")
     records.append(dict(
         name="nearest_rows", route="cuda", source="intrinsic3d_torch/csrc/nearest_rows.cu",
-        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:690", max_abs_err=0.0, ms=ms, call_ms=call_ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:690", elements=m, active=n_act, max_abs_err=0.0, ms=ms,
+        call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     ))
     return records
 
@@ -509,82 +529,326 @@ def refined_sdf_error(grid, center, radius: float):
     return float(np.median(err)), float(np.percentile(err, 90)), float(np.median(err0)), int(shell.sum())
 
 
-def refinement_phase(fusion: dict) -> dict:
-    """Stage 3 of bench_pipeline.py on the card: the double coarse-to-fine
-    refinement of the fused grid (3 grid levels × 3 pyramid levels, 10 outer
-    iterations each) from the sensor's initial poses and camera, with the
-    launch counters zeroed just before and read just after. Fails unless the
-    schedule, the costs, the plans, the fields and the sphere's bar hold.
-    Returns the launches and the per-level records."""
-    import numpy as np
+def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: bool = False) -> dict:
+    """`Intrinsic3D.refine` of `fused` on the card (stage 3 of
+    bench_pipeline.py: 3 grid levels × 3 pyramid levels, 10 outer iterations
+    each) from the sensor's `initial` poses and camera, with the launch
+    counters zeroed just before and read just after. Prints each level's
+    size, plan, iteration times, costs, tries, mu and peak memory, and the
+    phase seconds; writes them to chiprun_out/<tag>_levels.json. With
+    `capture_levels`, every level's `optimize_level` arguments are kept
+    under `inputs` (references only: nothing is copied)."""
     import torch
 
     from intrinsic3d_torch.ops import build
-    from intrinsic3d_torch.refine.intrinsic3d import Intrinsic3D
-    from intrinsic3d_torch.synthetic import PIPELINE_CG_ITERS, PIPELINE_DATASET, PIPELINE_REFINEMENT
+    from intrinsic3d_torch.refine import intrinsic3d
+    from intrinsic3d_torch.synthetic import PIPELINE_CG_ITERS, PIPELINE_REFINEMENT
 
-    sensor = fusion["sensor"]
-    poses, cam = fusion["initial"]
+    poses, cam = initial
     for i, pose in enumerate(poses):
         sensor.set_pose(i, pose)
     sensor.color_cam = cam
-    levels, stats = [], {}
-    torch.cuda.synchronize()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    engine = Intrinsic3D(PIPELINE_REFINEMENT, sensor, fusion["keyframes"], cg_iters=PIPELINE_CG_ITERS, stats=stats)
-    engine.add_callback(lambda info: levels.append((info.grid_level, info.pyramid_level, info.grid.num_voxels,
-                                                    info.stats)))
-    refined = engine.refine(fusion["grid"], stats=stats)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    levels, stats, inputs = [], {}, []
+    real = intrinsic3d.optimize_level
 
-    log(f"phase refinement: {len(fusion['keyframes'])} keyframes, fused {fusion['grid'].num_voxels} voxels -> "
-        f"refined {refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s")
+    def keep_inputs(grid, *args, **kw):
+        # `refine` writes the refined fields and colours back into the
+        # level's grid afterwards: keep the grid the level started from
+        inputs.append(((copy.deepcopy(grid), *args), kw))
+        return real(grid, *args, **kw)
+
+    if capture_levels:
+        intrinsic3d.optimize_level = keep_inputs
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        engine = intrinsic3d.Intrinsic3D(PIPELINE_REFINEMENT, sensor, keyframes, cg_iters=PIPELINE_CG_ITERS,
+                                         stats=stats)
+        engine.add_callback(lambda info: levels.append((info.grid_level, info.pyramid_level, info.grid.num_voxels,
+                                                        info.stats)))
+        refined = engine.refine(fused, stats=stats)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        intrinsic3d.optimize_level = real
+
+    log(f"phase {tag}: {len(keyframes)} keyframes, fused {fused.num_voxels} voxels -> refined "
+        f"{refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s")
     records = []
     for g, p, nvox, st in levels:
         per_el = st.peak_bytes / st.elements
-        log(f"  level g{g}p{p}: voxels={nvox} blocks={st.num_blocks} elements={st.elements} plan '{st.reason}'; "
-            f"setup {st.setup_seconds:.3f}s, outer iteration median {statistics.median(st.iter_seconds):.4f}s "
+        log(f"  level g{g}p{p}: voxels={nvox} blocks={st.num_blocks} bucket_blocks={st.bucket_blocks}/"
+            f"{st.num_blocks} elements={st.elements} plan '{st.reason}' eg_chunks={st.eg_chunks}; setup "
+            f"{st.setup_seconds:.3f}s, outer iteration median {statistics.median(st.iter_seconds):.4f}s "
             f"(min {min(st.iter_seconds):.4f}, max {max(st.iter_seconds):.4f}); cost {st.costs_before[0]:.6f} -> "
             f"{st.costs_after[-1]:.6f}; tries {st.tries}; mu {st.mus[-1]:.3e}; peak memory "
             f"{st.peak_bytes / 1e9:.3f} GB = {per_el:.1f} B/element")
-        records.append(dict(level=f"g{g}p{p}", voxels=nvox, blocks=st.num_blocks, elements=st.elements,
-                            reason=st.reason, setup_s=st.setup_seconds, iter_s=st.iter_seconds,
-                            costs_before=st.costs_before, costs_after=st.costs_after, tries=st.tries,
-                            mu=st.mus[-1], peak_bytes=st.peak_bytes, bytes_per_element=per_el))
+        records.append(dict(level=f"g{g}p{p}", voxels=nvox, blocks=st.num_blocks, bucket_blocks=st.bucket_blocks,
+                            eg_chunks=st.eg_chunks, elements=st.elements, reason=st.reason,
+                            setup_s=st.setup_seconds, iter_s=st.iter_seconds, costs_before=st.costs_before,
+                            costs_after=st.costs_after, tries=st.tries, mu=st.mus[-1], peak_bytes=st.peak_bytes,
+                            bytes_per_element=per_el))
     log("  refinement phases (s): " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
     log(f"  launches {launches}")
     (REPO / "chiprun_out").mkdir(exist_ok=True)
-    (REPO / "chiprun_out" / "refinement_levels.json").write_text(json.dumps(
+    (REPO / "chiprun_out" / f"{tag}_levels.json").write_text(json.dumps(
         dict(total_s=total_s, phases=stats, levels=records, launches=launches), indent=1))
+    return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial)
 
-    schedule = [(g, p) for g, p, _, _ in levels]
+
+def pose_drift(sensor, keyframes, initial) -> str:
+    """How far the refined keyframe poses moved from the sensor's initial
+    (true) ones: median and largest camera-centre shift and rotation."""
+    import numpy as np
+
+    shift, angle = [], []
+    for i in keyframes:
+        a, b = np.asarray(initial[0][i]), np.asarray(sensor.pose(i))
+        shift.append(float(np.linalg.norm(a[:3, 3] - b[:3, 3])))
+        cos = (np.trace(a[:3, :3].T @ b[:3, :3]) - 1.0) / 2.0
+        angle.append(float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))))
+    return (f"poses moved from the initial ones by median {np.median(shift) * 1e3:.3f} mm, max "
+            f"{max(shift) * 1e3:.3f} mm and median {np.median(angle):.4f} deg, max {max(angle):.4f} deg (printed, "
+            f"not checked)")
+
+
+def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
+    """The bars every pipeline refinement meets: the schedule, no accepted
+    cost rising, finite fields and poses, 1 mm at the end, the bicubic and
+    depth-probe kernels launched, and the refined SDF against the analytic
+    sphere."""
+    import numpy as np
+
+    refined, records = run["refined"], run["levels"]
+    schedule = [tuple(int(c) for c in r["level"][1:].split("p")) for r in records]
     if schedule != PIPELINE_SCHEDULE:
         fail(f"refinement schedule {schedule}, expected {PIPELINE_SCHEDULE}")
     for r in records:
-        if not r["reason"].startswith("dense"):
-            fail(f"level {r['level']} was planned '{r['reason']}', not dense")
         for it, (c0, c1) in enumerate(zip(r["costs_before"], r["costs_after"])):
             if not (np.isfinite(c0) and np.isfinite(c1)) or c1 > c0:
                 fail(f"level {r['level']} iteration {it}: accepted cost {c1} against {c0}")
     fields = (refined.sdf_refined, refined.albedo, refined.color, refined.sdf, refined.weight)
     if not all(np.isfinite(f).all() for f in fields):
         fail("non-finite refined fields")
-    if not all(np.isfinite(sensor.pose(i)).all() for i in fusion["keyframes"]):
+    if not all(np.isfinite(sensor.pose(i)).all() for i in keyframes):
         fail("non-finite refined poses")
     if abs(refined.voxel_size - 0.001) > 1e-9:
         fail(f"final voxel size {refined.voxel_size}, expected 0.001 m")
     for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
-        if launches[name] == 0:
+        if run["launches"][name] == 0:
             fail(f"kernel {name} was never launched in the pipeline refinement")
-    med, p90, med0, n_shell = refined_sdf_error(refined, PIPELINE_DATASET["center"], PIPELINE_DATASET["radius"])
+    med, p90, med0, n_shell = refined_sdf_error(refined, dataset["center"], dataset["radius"])
     log(f"  refined sdf vs the analytic sphere on {n_shell} shell voxels: median {med:.6f} m, p90 {p90:.6f} m; "
         f"unrefined median {med0:.6f} m (bar: median < {refined.voxel_size} m and <= 1.1 x unrefined)")
     if not (n_shell > 1000 and med < refined.voxel_size and med <= 1.1 * med0):
         fail("the refined SDF misses the analytic sphere's bar")
-    return dict(launches=launches, levels=records, total_s=total_s)
+    log(f"  {pose_drift(sensor, keyframes, run['initial'])}")
+
+
+def refinement_phase(fusion: dict) -> dict:
+    """Stage 3 of bench_pipeline.py on the card from the 30-frame fused grid
+    (`run_refinement`): fails unless `check_refinement`'s bars hold and every
+    level plans dense. Returns the launches and the per-level records."""
+    from intrinsic3d_torch.synthetic import PIPELINE_DATASET
+
+    run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"])
+    for r in run["levels"]:
+        if not r["reason"].startswith("dense"):
+            fail(f"level {r['level']} was planned '{r['reason']}', not dense")
+    check_refinement(run, fusion["sensor"], fusion["keyframes"], PIPELINE_DATASET)
+    return run
+
+
+def exact_bucket_blocks(inputs) -> int:
+    """The width of a level's exact frame buckets (`plan_eg_layout` with
+    bucketing forced and no budget) from its recorded `optimize_level`
+    inputs."""
+    import dataclasses
+
+    import numpy as np
+
+    from intrinsic3d_torch.grid.blocks import BlockLayout
+    from intrinsic3d_torch.mathutil import pyramid_level_to_scale
+    from intrinsic3d_torch.refine import optimizer as opt
+
+    (grid, _, params, cfg, _, depths, _, _, thres, rgbd), _ = inputs
+    fb, _, _ = opt.plan_eg_layout(
+        BlockLayout.build(grid), params.poses.cpu().numpy(),
+        params.intr.cpu().numpy().astype(np.float64) * pyramid_level_to_scale(rgbd),
+        dataclasses.replace(cfg, frame_bucketing="always"), int(depths.shape[2]), int(depths.shape[1]),
+        grid.voxel_size, thres, depths.cpu().numpy() if cfg.occlusion_distance > 0.0 else None,
+        budget=float("inf"),
+    )
+    return int(fb.shape[1])
+
+
+def streaming_budget(k: int, bucket_blocks: int, chunks: int) -> float:
+    """A budget under which `plan_eg_layout` streams `k` frames of exact
+    buckets `bucket_blocks` wide in `chunks` frame chunks (its memory model
+    solved for ⌈k/chunks⌉ frames a chunk)."""
+    from intrinsic3d_torch.refine import optimizer as opt
+
+    el_frame = bucket_blocks * 512
+    frames = -(-k // chunks) + 0.5
+    return k * el_frame * opt._EG_CHUNK_PERSIST_BYTES + frames * el_frame * opt._EG_CHUNK_TRANSIENT_BYTES
+
+
+def stream_arithmetic(k: int, bucket_blocks: int, budget: float) -> str:
+    """The planner's streaming arithmetic for exact buckets, as text, and
+    whether one-frame chunks fit the budget."""
+    from intrinsic3d_torch.refine import optimizer as opt
+
+    el = k * bucket_blocks * 512
+    persist, assembly = el * opt._EG_CHUNK_PERSIST_BYTES, el * opt._EG_ASSEMBLY_BYTES
+    per_frame = bucket_blocks * 512 * opt._EG_CHUNK_TRANSIENT_BYTES
+    f_max = int((budget - persist) // per_frame) if persist < budget else 0
+    fits = persist < budget and assembly <= budget and f_max >= 1
+    return (f"{el} exact elements: one-shot {el * opt._EG_DENSE_BYTES_PER_ELEMENT / 1e9:.2f} GB, persistent "
+            f"{persist / 1e9:.2f} GB + {per_frame / 1e9:.3f} GB a chunk frame, assembly {assembly / 1e9:.2f} GB, "
+            f"budget {budget / 1e9:.2f} GB: up to {f_max} frames a chunk; one-frame chunks "
+            f"{'fit' if fits else 'do not fit'}"), fits
+
+
+def compare_levels(tag: str, inputs, runs: dict, coeff_dtype: str, gate: bool, capture: dict = None) -> None:
+    """Two outer iterations of a level from its recorded `optimize_level`
+    inputs, once per entry of `runs` ({name: (config changes, budget,
+    expected chunks)}), each from the same start, with the E_g coefficients
+    in `coeff_dtype`; the first run's sampler inputs are captured into
+    `capture` when given. Fails unless each run's plan is bucketed in the
+    expected chunks and, when `gate`, the second run's first cost agrees
+    with the first run's at rtol 1e-4 and its trajectory at rtol 2e-2
+    (tests/test_eg_chunked.py's tolerances); otherwise the differences are
+    only printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from intrinsic3d_torch import observations
+    from intrinsic3d_torch.refine import optimizer as opt
+    from intrinsic3d_torch.refine import residuals
+
+    args, kw = inputs
+    kw = dict(kw, cg_coeff_dtype=coeff_dtype)
+    out = {}
+    for i, (name, (changes, budget, chunks)) in enumerate(runs.items()):
+        cfg = dataclasses.replace(args[3], iterations=2, **changes)
+        restore = []
+        if capture is not None and i == 0:
+            restore = [capture_first_call(residuals, "bicubic_rows", capture),
+                       capture_first_call(observations, "nearest_rows", capture)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            _, _, st = opt.optimize_level(*args[:3], cfg, *args[4:], **kw, budget=budget)
+        finally:
+            for r in restore:
+                r()
+        out[name] = st
+        held = sum(a.numel() * a.element_size() for v in (capture or {}).values() for a in v if torch.is_tensor(a))
+        log(f"  {tag}, {coeff_dtype} coefficients, {name}: plan '{st.reason}' eg_chunks={st.eg_chunks} "
+            f"bucket_blocks={st.bucket_blocks} elements={st.elements}; costs {st.costs_before} -> {st.costs_after}; "
+            f"tries {st.tries}; peak {st.peak_bytes / 1e9:.3f} GB = {st.peak_bytes / st.elements:.1f} B/element"
+            + (f" (with the {held / 1e9:.3f} GB of captured sampler inputs)" if restore else "")
+            + f"; {time.perf_counter() - t0:.2f}s")
+        if st.eg_chunks != chunks or st.bucket_blocks == 0:
+            fail(f"{tag} {name}: planned '{st.reason}' in {st.eg_chunks} chunks, expected bucketed in {chunks}")
+    (a, sa), (b, sb) = out.items()
+    first = abs(sb.costs_before[0] - sa.costs_before[0]) / abs(sa.costs_before[0])
+    traj = max(abs(y - x) / abs(x) for x, y in zip(sa.costs_before + sa.costs_after, sb.costs_before + sb.costs_after))
+    log(f"  {tag}, {coeff_dtype}: {b} against {a}: first cost {first:.2e} apart, trajectory {traj:.2e} at most"
+        + (" (bars 1e-4, 2e-2)" if gate else " (reported)"))
+    if gate and not (first <= 1e-4 and np.allclose(sb.costs_before + sb.costs_after, sa.costs_before + sa.costs_after,
+                                                     rtol=2e-2, atol=0)):
+        fail(f"{tag}: the {b} run's costs do not track the {a} run's")
+
+
+def many_keyframe_phase() -> dict:
+    """bench_pipeline.py --frames 90 on the card: the orbit with 90 frames,
+    keyframes (30 kept) and fusion, then the refinement of `run_refinement`
+    from the initial poses, its counters zeroed just before and read just
+    after. Fails unless `check_refinement`'s bars hold, the finest level is
+    frame-bucketed by the planner's own rules, and no level is frame-capped
+    unless one-frame chunks of its exact buckets cannot fit. Then the
+    streamed check (`compare_levels`): at the 2 mm level, the bucketed level
+    one-shot (no budget) against streamed in 2 chunks; at the finest level
+    (whose exact buckets do not fit one-shot on an 80 GB card), the
+    planner's own plan against twice its chunks, the sampler inputs of its
+    first run captured. Returns the launches, the
+    records and the captured inputs."""
+    import torch
+
+    from intrinsic3d_torch.apps import app_fusion, app_keyframes
+    from intrinsic3d_torch.refine import optimizer as opt
+    from intrinsic3d_torch.synthetic import (
+        PIPELINE_MANY_KF_DATASET,
+        PIPELINE_SETTINGS,
+        build_orbit_dataset,
+        pipeline_configs,
+    )
+
+    ds = PIPELINE_MANY_KF_DATASET
+    t0 = time.perf_counter()
+    sensor = build_orbit_dataset(**ds)
+    dataset_s = time.perf_counter() - t0
+    initial = ([sensor.pose(i).copy() for i in range(sensor.num_frames)], sensor.color_cam)
+    kcfg, fcfg = pipeline_configs(center=ds["center"], radius=ds["radius"], **PIPELINE_SETTINGS)
+    t0 = time.perf_counter()
+    keyframes = app_keyframes.run(sensor, kcfg).keyframe_ids()
+    torch.cuda.synchronize()
+    keyframes_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = app_fusion.run(sensor, fcfg)
+    fusion_s = time.perf_counter() - t0
+    budget = opt.eg_hbm_budget()
+    log(f"phase many-keyframe fusion: frames={sensor.num_frames} {sensor.depth_cam.width}x"
+        f"{sensor.depth_cam.height}, {len(keyframes)} keyframes; dataset {dataset_s:.2f}s (host), keyframes "
+        f"{keyframes_s:.4f}s, fusion {fusion_s:.4f}s, {fused.num_voxels} voxels; E_g budget {budget / 1e9:.2f} GB")
+    if len(keyframes) != ds["num_frames"] // PIPELINE_SETTINGS["window_size"]:
+        fail(f"{len(keyframes)} keyframes of the {ds['num_frames']}-frame orbit")
+
+    run = run_refinement("many_keyframe_refinement", sensor, keyframes, initial, fused, capture_levels=True)
+    check_refinement(run, sensor, keyframes, ds)
+    k = len(keyframes)
+    for r, inputs in zip(run["levels"], run["inputs"]):
+        if "frame-capped" in r["reason"] or r["bucket_blocks"]:
+            text, fits = stream_arithmetic(k, exact_bucket_blocks(inputs), budget)
+            log(f"  level {r['level']} '{r['reason']}': {text}")
+            if "frame-capped" in r["reason"] and fits:
+                fail(f"level {r['level']} was frame-capped where its exact buckets stream")
+    finest = run["levels"][-1]
+    if not finest["bucket_blocks"]:
+        fail(f"the finest level was planned '{finest['reason']}', not frame-bucketed")
+    n = run["launches"]
+    log(f"  refinement {run['total_s']:.3f}s; launches bicubic_rows_fwd={n['bicubic_rows_fwd']} "
+        f"bicubic_rows_fwdgrad={n['bicubic_rows_fwdgrad']} nearest_rows={n['nearest_rows']}")
+
+    # --- the streamed check, each pair from one recorded start: gated with
+    # float32 coefficients, where the streamed path computes what one-shot
+    # does; reported with the production bfloat16 ones, where it takes the
+    # gradient and diagonal from the cast fields (the JAX package's design)
+    always = dict(frame_bucketing="always")
+    mid = run["inputs"][-2]
+    mid_pair = {
+        "one-shot": (always, float("inf"), 1),
+        "streamed": (always, streaming_budget(k, exact_bucket_blocks(mid), 2), 2),
+    }
+    c0 = finest["eg_chunks"]
+    c1 = 2 * c0 if 2 * c0 <= k else c0 // 2
+    finest_pair = {
+        f"planned ({c0} chunks)": ({}, None, c0),
+        f"{c1} chunks": ({}, streaming_budget(k, finest["bucket_blocks"], c1), c1),
+    }
+    captured = {}
+    for dtype, gate in (("float32", True), ("bfloat16", False)):
+        compare_levels("2 mm level", mid, mid_pair, dtype, gate)
+        compare_levels("finest level", run["inputs"][-1], finest_pair, dtype, gate,
+                       capture=captured if gate else None)
+    del run["inputs"], mid
+    return dict(launches=run["launches"], levels=run["levels"], total_s=run["total_s"], captured=captured)
 
 
 def small_refinement_agrees() -> None:
@@ -753,20 +1017,39 @@ def main() -> int:
     del fusion
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
 
-    # --- phase 6: the distance-transform kernel and the sampler's second entry
+    # --- phase 6: the 90-frame orbit (30 keyframes) refined through frame
+    # buckets and streamed linearization; counts zeroed just before and read
+    # just after. Then K1 and K2 against their plain versions on the sampler
+    # inputs of the finest bucketed level's first call
+    many = many_keyframe_phase()
+    for r in records:
+        r["launches_many_keyframe_refinement"] = many["launches"][r["name"]]
+    log("phase check: the many-keyframe refinement ran bucketed and streamed levels through the kernels, "
+        "met its bars, and its streamed runs tracked the one-shot and planned runs")
+    by_name = {r["name"]: r for r in records}
+    for rec in check_kernels(many["captured"]):
+        by_name[rec.pop("name")]["many_keyframe"] = {
+            k: v for k, v in rec.items() if k not in ("route", "source", "replaces")}
+    many_launches = many["launches"]
+    del many
+    log("phase kernels: every kernel of the bucketed path agrees with its plain version")
+
+    # --- phase 7: the distance-transform kernel and the sampler's second entry
     # against their plain versions
     rec = check_distance_transform(window_inputs)
     rec.update(launches=fusion_launches["correct_sdf_dense"], status="ok",
-               launches_pipeline_refinement=refinement["launches"]["correct_sdf_dense"])
+               launches_pipeline_refinement=refinement["launches"]["correct_sdf_dense"],
+               launches_many_keyframe_refinement=many_launches["correct_sdf_dense"])
     records.append(rec)
     del window_inputs
     for rec in check_sampler_sample(rows_inputs):
-        rec.update(launches=0, status="ok", launches_pipeline_refinement=refinement["launches"][rec["name"]])
+        rec.update(launches=0, status="ok", launches_pipeline_refinement=refinement["launches"][rec["name"]],
+                   launches_many_keyframe_refinement=many_launches[rec["name"]])
         records.append(rec)
     del rows_inputs
     log("phase kernels: the distance-transform kernel and bicubic_sample agree with their plain versions")
 
-    # --- phase 7: small fusion and refinement problems on the card against the
+    # --- phase 8: small fusion and refinement problems on the card against the
     # CPU path
     small_fusion_agrees()
     log("phase check: the card's fusion matches the plain CPU path")

@@ -75,9 +75,8 @@ class RefinementConfig:
     fix_distortion: bool = False
     # E_g element layout of the level loop ("auto" / "always" / "never" /
     # "capped"), planned by refine.optimizer.plan_eg_layout with the JAX
-    # package's rules. Levels planned dense run; a plan for frame buckets or
-    # streamed linearization raises NotImplementedError (that element
-    # transport is not ported yet)
+    # package's rules: dense, frame-bucketed, streamed over frame chunks, or
+    # frame-capped
     frame_bucketing: str = "auto"
     # eliminate the dense global block {poses, intrinsics, distortion} from
     # the PCG through its damped Gram matrix (refine/solver.py)

@@ -51,10 +51,12 @@ def grid_from_numpy(voxel_size, coords, sdf, weight, color, albedo=None, sdf_ref
 def block_assembly_from_numpy(
     layout: BlockLayout,
     eg_w, eg_sh, eg_vpos, er_w, es_ref, es_w, ea_w, lam, images, pyr_scale, voxel_size,
+    bmap=None,
     device="cuda",
 ) -> BlockAssembly:
-    """Port `BlockAssembly` from the dense fields of a JAX `BlockAssembly`,
-    with the port's own gather-form shift plans rebuilt from `layout`."""
+    """Port `BlockAssembly` from the fields of a JAX `BlockAssembly` (dense,
+    or frame-bucketed with `bmap`), with the port's own gather-form shift
+    plans rebuilt from `layout`."""
     sdf_plan, alb_plan = layout_plans(layout, device)
     return BlockAssembly(
         eg_w=_t(eg_w, device),
@@ -70,4 +72,5 @@ def block_assembly_from_numpy(
         images=_t(images, device),
         pyr_scale=_t(pyr_scale, device),
         voxel_size=_t(voxel_size, device),
+        bmap=None if bmap is None else _t(bmap, device, torch.int64),
     )

@@ -42,19 +42,24 @@ def compute_observations_batch(
     cam: Camera,
     poses: torch.Tensor,  # [K, 6]
     depths: torch.Tensor,  # [K, H, W]
-    iso_pts: torch.Tensor,  # [D, 3]
-    normals: torch.Tensor,  # [D, 3]
+    iso_pts: torch.Tensor,  # [D, 3] shared, or [K, E, 3] per frame row (frame-bucketed elements)
+    normals: torch.Tensor,  # [D, 3] or [K, E, 3], matching iso_pts
     occlusion_distance,
     active=None,  # [K, D] float, 0 ⇒ weight not needed (not probed)
 ) -> torch.Tensor:
     """All-frames observation weights `[K, D]` — `compute_observation`
-    batched over keyframes, with the depth probe through `nearest_rows`."""
+    batched over keyframes, with the depth probe through `nearest_rows`.
+    3-D `iso_pts`/`normals` give each keyframe row its own points (row k of
+    the frame-bucketed layout holds the slots of frame k's visible
+    blocks)."""
     k = poses.shape[0]
-    d = iso_pts.shape[0]
+    d = iso_pts.shape[-2]
+    if iso_pts.dim() == 2:
+        iso_pts, normals = iso_pts.unsqueeze(0), normals.unsqueeze(0)
     pose_k = poses.view(k, 1, 6)
-    pt = transform_points(pose_k, iso_pts.unsqueeze(0))  # [K, D, 3]
+    pt = transform_points(pose_k, iso_pts)  # [K, D, 3]
     rot_only = torch.cat([poses[:, :3], torch.zeros_like(poses[:, 3:])], dim=-1).view(k, 1, 6)
-    n_cam = transform_points(rot_only, normals.unsqueeze(0))
+    n_cam = transform_points(rot_only, normals)
     uv, valid = project(cam, pt)
     ui = torch.floor(uv[..., 0] + 0.5).to(torch.int32)
     vi = torch.floor(uv[..., 1] + 0.5).to(torch.int32)

@@ -1,8 +1,7 @@
 """Block-dense formulation of the joint-refinement problem (flat [nb, B³]).
 
-Counterpart of the dense (`bmap is None`) part of
-`intrinsic3d_tpu/refine/blockform.py`. Per-voxel fields live as
-`[nb+1, B³]` blocks; stencil offsets are `grid.blocks.ShiftPlan` gathers;
+Counterpart of `intrinsic3d_tpu/refine/blockform.py`. Per-voxel fields live
+as `[nb+1, B³]` blocks; stencil offsets are `grid.blocks.ShiftPlan` gathers;
 E_r / E_s / E_a are evaluated densely over all block slots with per-slot
 weights (E_a as three +axis direction fields); E_g is evaluated densely over
 FRAME-MAJOR (keyframe k, block b, slot s) elements `[K, nb, B³]` — element
@@ -11,16 +10,22 @@ where k is not among the voxel's top-N observations — so the frame index of
 an element is its row index, the pose "gather" a broadcast of `poses[k]` and
 its transpose a per-row sum.
 
+With `BlockAssembly.bmap [K, NBc]` set (FRAME-BUCKETED elements, for captures
+whose keyframe count far exceeds the per-voxel observation cap), row k holds
+only the NBc blocks of frame k's visibility bucket (`build_frame_buckets`):
+element (k, j, s) is the observation of block `bmap[k, j]`'s slot s. Every
+per-element stencil and per-slot value is then a gather of whole 512-slot
+block rows (`_gather_rows`), and every transpose a scatter-add of block rows
+(`_unbucket`); padding entries equal nb and index the all-zero pad row.
+
 `linearize_block` takes the exact per-element E_g Jacobian from ONE reverse
 pass with a ones cotangent (elements are independent); the GN matvec, its
-transpose, the gradient and the Jacobi diagonal are then dense elementwise
-math over the coefficient fields plus shift-plan gathers.
-
-The frame-bucket construction (`build_frame_buckets`, host numpy) is here as
-the level planner's decision input; the bucketed element transport (`bmap`
-in the residuals and linearization), the streamed
-`linearize_block_chunked`/`block_total_cost` and the flat-table bridge
-`to_block_problem` are not ported yet.
+transpose, the gradient and the Jacobi diagonal are then elementwise math
+over the coefficient fields plus shift-plan gathers.
+`linearize_block_chunked` and `block_total_cost` stream that reverse pass
+and the LM acceptance forward over frame chunks, so only the compact
+coefficient fields persist while the transients are bounded at one chunk's
+frames. The flat-table bridge `to_block_problem` is not ported.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ _RING6 = _PLUS + ((-1, 0, 0), (0, -1, 0), (0, 0, -1))
 class BlockAssembly(NamedTuple):
     """Per-outer-iteration problem data in flat block-dense layout."""
 
-    eg_w: torch.Tensor  # [K, nb, B³] observation·shell weight (0 = inactive)
+    eg_w: torch.Tensor  # [K, kb, B³] observation·shell weight (0 = inactive); kb = nb, or NBc bucketed
     eg_sh: torch.Tensor  # [9, D] per-voxel SH coefficients (D = nb·B³)
     eg_vpos: torch.Tensor  # [3, D] int32 voxel coords (0 on empty slots)
     sdf_plan: ShiftPlan
@@ -65,6 +70,7 @@ class BlockAssembly(NamedTuple):
     images: torch.Tensor  # [K, H, W]
     pyr_scale: torch.Tensor
     voxel_size: torch.Tensor
+    bmap: Optional[torch.Tensor] = None  # [K, NBc] int64 frame buckets (pad = nb), or None (dense)
 
 
 def _fid_rows(k: int, kb: int, s: int, device) -> torch.Tensor:
@@ -78,18 +84,97 @@ def _perslot(field: torch.Tensor, k: int, kb: int, s: int) -> torch.Tensor:
     return field.reshape(c, kb, s).movedim(0, -1).unsqueeze(0).expand(k, kb, s, c)
 
 
+# ---------------------------------------------------------------------------
+# Frame-bucketed element transport (bmap is not None): whole 512-slot block
+# rows are gathered and scatter-added, never single elements
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(stack: torch.Tensor) -> torch.Tensor:
+    """`[T, nb, S]` → `[T, nb+1, S]` with an all-zero pad row (bmap target)."""
+    return torch.cat([stack, stack.new_zeros(stack.shape[0], 1, stack.shape[2])], dim=1)
+
+
+def _gather_rows(stack: torch.Tensor, bmap: torch.Tensor) -> torch.Tensor:
+    """`[T, nb, S]` per-slot stack → coefficient-major bucketed rows
+    `[T, K, NBc, S]`: one `index_select` of block rows from the stack padded
+    once, in the layout the E_g core and the linearization read."""
+    t, _, s = stack.shape
+    k, nbc = bmap.shape
+    return _pad_rows(stack).index_select(1, bmap.reshape(-1)).view(t, k, nbc, s)
+
+
+def _stencil_bucket(sh: torch.Tensor, t: int, bmap: torch.Tensor) -> torch.Tensor:
+    """`[T', nb, B³]` shifted stack → bucketed per-element rows [K, NBc, B³, t]
+    (a view of the `[t, K, NBc, B³]` gather)."""
+    return _gather_rows(sh[:t], bmap).movedim(0, -1)
+
+
+def _perslot_bucket(field: torch.Tensor, bmap: torch.Tensor, s: int = 512) -> torch.Tensor:
+    """Per-slot `[C, nb·B³]` field → bucketed per-element rows [K, NBc, B³, C]."""
+    return _gather_rows(field.reshape(field.shape[0], -1, s), bmap).movedim(0, -1)
+
+
+def _unbucket(vals: torch.Tensor, bmap: torch.Tensor, nb: int, s: int) -> torch.Tensor:
+    """`[F, K, NBc, S]` bucketed cotangents → `[F, nb, S]` per-slot sums: one
+    `index_add_` of K·NBc block rows (rows of one block from several frames
+    accumulate; padding rows land on the dropped pad row). On the card the
+    adds are atomic, so the sums' order, and their last bits, vary from run
+    to run."""
+    f, k, nbc = vals.shape[:3]
+    out = vals.new_zeros(f, nb + 1, s)
+    out.index_add_(1, bmap.reshape(-1), vals.reshape(f, k * nbc, s))
+    return out[:, :nb]
+
+
+def _eg_chunk_inputs(asm: BlockAssembly, sh, sha, eg_w, bmap, fids, poses, intr, dist):
+    """Coefficient-major per-element inputs of the E_g core for the frame rows
+    `fids [kc]` (int32, the true keyframe ids) with weights `eg_w [kc, kb,
+    B³]` and, bucketed, their bucket rows `bmap [kc, NBc]`: the stencil and
+    parameter stacks `(sdf10 [10, kc, kb, B³], alb4 [4, …], pose6 [6, …],
+    intr4 [4, …], dist5 [5, …])`, then sh9 `[9, …]`, vpos `[3, …]` and the
+    frame ids `[kc, kb, B³]`. Dense rows are broadcast views; bucketed rows
+    are gathered copies."""
+    kc, kb, s = eg_w.shape
+    if bmap is None:
+        def rows(x):  # [C, kb, B³] per-slot → broadcast [C, kc, kb, B³]
+            return x.unsqueeze(1).expand(x.shape[0], kc, kb, s)
+    else:
+        def rows(x):
+            return _gather_rows(x, bmap)
+    per_frame = poses[fids.long()].T.reshape(6, kc, 1, 1).expand(6, kc, kb, s)
+    stacks = (
+        rows(sh[:10]),
+        rows(sha[:4]),
+        per_frame,
+        intr.reshape(4, 1, 1, 1).expand(4, kc, kb, s),
+        dist.reshape(5, 1, 1, 1).expand(5, kc, kb, s),
+    )
+    sh9 = rows(asm.eg_sh.reshape(9, -1, s))
+    vpos = rows(asm.eg_vpos.reshape(3, -1, s))
+    fid = fids.view(kc, 1, 1).expand(kc, kb, s)
+    return stacks, sh9, vpos, fid
+
+
 def _eg_dense(poses_intr_dist, sdf10, alb4, asm: BlockAssembly, validity_only=False, masked=False):
-    """Dense E_g forward over the (keyframe, slot) elements: weighted `[K, nb, B³]`."""
+    """E_g forward over the (keyframe, slot or bucket) elements: weighted
+    `[K, kb, B³]`."""
     poses, intr, dist = poses_intr_dist
     k, kb, s = asm.eg_w.shape
+    if asm.bmap is None:
+        sh9 = _perslot(asm.eg_sh, k, kb, s)
+        vpos = _perslot(asm.eg_vpos, k, kb, s)
+    else:
+        sh9 = _perslot_bucket(asm.eg_sh, asm.bmap, s)
+        vpos = _perslot_bucket(asm.eg_vpos, asm.bmap, s)
     r = eg_core(
         sdf10,
         alb4,
         poses.view(k, 1, 1, 6).expand(k, kb, s, 6),
         intr,
         dist,
-        _perslot(asm.eg_sh, k, kb, s),
-        _perslot(asm.eg_vpos, k, kb, s),
+        sh9,
+        vpos,
         _fid_rows(k, kb, s, asm.eg_w.device),
         asm.images,
         asm.pyr_scale,
@@ -101,7 +186,10 @@ def _eg_dense(poses_intr_dist, sdf10, alb4, asm: BlockAssembly, validity_only=Fa
 
 
 def _stencil_for(asm: BlockAssembly, sh: torch.Tensor, t: int) -> torch.Tensor:
-    """`[T', nb, B³]` shifted stack → broadcast per-element rows [K, nb, B³, t]."""
+    """`[T', nb, B³]` shifted stack → per-element rows [K, kb, B³, t] in the
+    assembly's element layout (a broadcast dense, a gather bucketed)."""
+    if asm.bmap is not None:
+        return _stencil_bucket(sh, t, asm.bmap)
     k = asm.eg_w.shape[0]
     return sh[:t].movedim(0, -1).unsqueeze(0).expand(k, *sh.shape[1:], t)
 
@@ -173,45 +261,36 @@ def _ring_into(plan: ShiftPlan, cot: list, center_val, ring_val) -> None:
         cot[plan.index(o)] = cot[plan.index(o)] + ring_val
 
 
-def linearize_block(params: Params, asm: BlockAssembly) -> Tuple[torch.Tensor, BlockLin]:
-    """One reverse pass over the dense E_g elements + closed forms for the
-    linear terms. Returns (cost0, lin).
-
-    The per-element inputs are materialized coefficient-major (`[C, K, nb,
-    B³]`) and fed to `eg_core` as `[..., C]` views, so the ones-cotangent
-    gradients land directly in BlockLin's layout. The autograd graph is freed
-    by the `autograd.grad` call itself (no `retain_graph`)."""
-    k, kb, s = asm.eg_w.shape
-    sh = asm.sdf_plan.apply(params.sdf)  # [13, nb, B³]
-    sha = asm.alb_plan.apply(params.albedo)  # [7, nb, B³]
-
-    def leaf(src):
-        # per-slot [c, nb, B³], per-frame [c, K] or shared [c] values → a
-        # materialized [c, K, nb, B³] input of the reverse pass
-        src = src.detach()
-        src = src[:, None] if src.dim() == 3 else src.reshape(src.shape[0], -1, 1, 1)
-        return src.expand(src.shape[0], k, kb, s).clone().requires_grad_(True)
-
-    inputs = (leaf(sh[:10]), leaf(sha[:4]), leaf(params.poses.T), leaf(params.intr), leaf(params.dist))
-    sqrt_wlam = torch.sqrt(asm.eg_w * asm.lam[0])
+def _eg_reverse(asm: BlockAssembly, sh, sha, eg_w, bmap, fids, params: Params):
+    """The weighted E_g residual of the frame rows `fids` and its exact
+    per-element Jacobian from ONE reverse pass with a ones cotangent
+    (elements are independent). The inputs are materialized
+    coefficient-major (`[C, kc, kb, B³]`; a bucketed gather is already a
+    fresh copy) and fed to `eg_core` as `[..., C]` views, so the gradients
+    land in BlockLin's layout. `autograd.grad` frees the graph itself (no
+    `retain_graph`). Returns (r0 `[kc, kb, B³]`, (a_sdf, a_alb, a_pose,
+    a_intr, a_dist))."""
+    stacks, sh9, vpos, fid = _eg_chunk_inputs(asm, sh, sha, eg_w, bmap, fids, params.poses, params.intr, params.dist)
+    inputs = tuple(x.detach().contiguous().requires_grad_(True) for x in stacks)
+    sqrt_wlam = torch.sqrt(eg_w * asm.lam[0])
     with torch.enable_grad():
-        r0_g = sqrt_wlam * eg_core(
+        r0 = sqrt_wlam * eg_core(
             *(a.movedim(0, -1) for a in inputs),
-            _perslot(asm.eg_sh, k, kb, s),
-            _perslot(asm.eg_vpos, k, kb, s),
-            _fid_rows(k, kb, s, asm.eg_w.device),
+            sh9.movedim(0, -1),
+            vpos.movedim(0, -1),
+            fid,
             asm.images,
             asm.pyr_scale,
             asm.voxel_size,
-            active=(asm.eg_w > 0).to(torch.float32),
+            active=(eg_w > 0).to(torch.float32),
         )
-        # elements are independent: a ones cotangent gives the exact
-        # per-element Jacobian, directly in the coefficient-major layout
-        a_sdf, a_alb, a_pose, a_intr, a_dist = torch.autograd.grad(
-            r0_g, inputs, grad_outputs=torch.ones_like(r0_g)
-        )
-    r0_g = r0_g.detach()
+        grads = torch.autograd.grad(r0, inputs, grad_outputs=torch.ones_like(r0))
+    return r0.detach(), grads
 
+
+def _finish_lin(sh, sha, asm: BlockAssembly, r0_g, coeffs) -> Tuple[torch.Tensor, BlockLin]:
+    """Closed forms of the linear terms and the total cost around the E_g
+    residual and coefficient fields: (cost0, lin)."""
     r0_r, r0_s, r0_a, sq_er, sq_es, sq_ea = _linear_terms(sh, sha, asm)
     cost0 = 0.5 * (
         torch.sum(r0_g * r0_g)
@@ -219,8 +298,102 @@ def linearize_block(params: Params, asm: BlockAssembly) -> Tuple[torch.Tensor, B
         + torch.sum(r0_s * r0_s)
         + torch.sum(r0_a * r0_a)
     )
-    lin = BlockLin(a_sdf, a_alb, a_pose, a_intr, a_dist, r0_g, r0_r, r0_s, r0_a, sq_er, sq_es, sq_ea)
-    return cost0, lin
+    return cost0, BlockLin(*coeffs, r0_g, r0_r, r0_s, r0_a, sq_er, sq_es, sq_ea)
+
+
+def linearize_block(params: Params, asm: BlockAssembly) -> Tuple[torch.Tensor, BlockLin]:
+    """One reverse pass over all E_g elements + closed forms for the linear
+    terms. Returns (cost0, lin)."""
+    sh = asm.sdf_plan.apply(params.sdf)  # [13, nb, B³]
+    sha = asm.alb_plan.apply(params.albedo)  # [7, nb, B³]
+    fids = torch.arange(asm.eg_w.shape[0], dtype=torch.int32, device=asm.eg_w.device)
+    r0_g, coeffs = _eg_reverse(asm, sh, sha, asm.eg_w, asm.bmap, fids, params)
+    return _finish_lin(sh, sha, asm, r0_g, coeffs)
+
+
+def _chunk_xs(asm: BlockAssembly, num_chunks: int) -> list:
+    """Split the element grid's frame axis into chunks of kc = ⌈K/C⌉ frames:
+    `[(first frame, frames held, inputs)]`. The last chunk is padded to kc
+    frames with weight-0 rows whose frame id is clipped to K−1 and whose
+    bucket rows index the pad block, so every chunk has one shape (a chunk
+    that would hold padding only is left out: it adds nothing)."""
+    k, kb, s = asm.eg_w.shape
+    kc = -(-k // num_chunks)
+    nb = asm.er_w.shape[0]
+    out = []
+    for lo in range(0, k, kc):
+        n = min(kc, k - lo)
+        x = dict(
+            eg_w=asm.eg_w[lo : lo + n],
+            fids=torch.clamp(torch.arange(lo, lo + kc, dtype=torch.int32, device=asm.eg_w.device), max=k - 1),
+            bmap=None if asm.bmap is None else asm.bmap[lo : lo + n],
+        )
+        if n < kc:
+            x["eg_w"] = torch.cat([x["eg_w"], x["eg_w"].new_zeros(kc - n, kb, s)])
+            if x["bmap"] is not None:
+                x["bmap"] = torch.cat([x["bmap"], torch.full_like(x["bmap"][:1], nb).expand(kc - n, -1)])
+        out.append((lo, n, x))
+    return out
+
+
+def linearize_block_chunked(
+    params: Params, asm: BlockAssembly, num_chunks: int, coeff_dtype=torch.float32
+) -> Tuple[torch.Tensor, BlockLin]:
+    """`linearize_block` with the E_g reverse pass STREAMED over frame chunks
+    (`_chunk_xs`), one chunk at a time, each chunk's graph freed before the
+    next: the transients are bounded at ⌈K/C⌉ frames' worth while the full
+    element grid keeps the exact per-voxel top-N over all frames
+    (``colorization.cpp:357-370``). Only the 29 coefficient fields, written
+    in `coeff_dtype` straight into preallocated `[F, K, kb, B³]` outputs,
+    and the float32 residual persist. With float32 the result is
+    `linearize_block`'s: chunking re-batches the same per-element math."""
+    if num_chunks <= 1:
+        cost0, lin = linearize_block(params, asm)
+        return cost0, lin if coeff_dtype == torch.float32 else cast_lin(lin, coeff_dtype)
+    k, kb, s = asm.eg_w.shape
+    sh = asm.sdf_plan.apply(params.sdf)
+    sha = asm.alb_plan.apply(params.albedo)
+    r0_g = asm.eg_w.new_empty(k, kb, s)
+    coeffs = tuple(asm.eg_w.new_empty((c, k, kb, s), dtype=coeff_dtype) for c in (10, 4, 6, 4, 5))
+    for lo, n, x in _chunk_xs(asm, num_chunks):
+        r0_c, grads = _eg_reverse(asm, sh, sha, x["eg_w"], x["bmap"], x["fids"], params)
+        r0_g[lo : lo + n] = r0_c[:n]
+        for out, g in zip(coeffs, grads):
+            out[:, lo : lo + n] = g[:, :n]
+        del r0_c, grads
+    return _finish_lin(sh, sha, asm, r0_g, coeffs)
+
+
+def block_total_cost(params: Params, asm: BlockAssembly, num_chunks: int = 1, masked: bool = True) -> torch.Tensor:
+    """Total cost `0.5·‖r‖²` with the E_g forward streamed over frame chunks
+    (the LM acceptance of the streamed solve: the whole residual stack would
+    hold element-grid-sized temporaries). One chunk is
+    `block_all_residuals`' sum."""
+    if num_chunks <= 1:
+        r = block_all_residuals(params, asm, masked=masked)
+        return 0.5 * torch.sum(r * r)
+    sh = asm.sdf_plan.apply(params.sdf)
+    sha = asm.alb_plan.apply(params.albedo)
+    cost_g = sh.new_zeros(())
+    for _, _, x in _chunk_xs(asm, num_chunks):
+        eg_w = x["eg_w"]
+        stacks, sh9, vpos, fid = _eg_chunk_inputs(
+            asm, sh, sha, eg_w, x["bmap"], x["fids"], params.poses, params.intr, params.dist
+        )
+        r = eg_core(
+            *(a.movedim(0, -1) for a in stacks),
+            sh9.movedim(0, -1),
+            vpos.movedim(0, -1),
+            fid,
+            asm.images,
+            asm.pyr_scale,
+            asm.voxel_size,
+            active=(eg_w > 0).to(torch.float32) if masked else None,
+        )
+        r = torch.sqrt(eg_w * asm.lam[0]) * r
+        cost_g = cost_g + torch.sum(r * r)
+    r_r, r_s, r_a, _, _, _ = _linear_terms(sh, sha, asm)
+    return 0.5 * (cost_g + torch.sum(r_r * r_r) + torch.sum(r_s * r_s) + torch.sum(r_a * r_a))
 
 
 def cast_lin(lin: BlockLin, dtype) -> BlockLin:
@@ -241,6 +414,14 @@ def _f32(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32)
 
 
+def _sum_frames(vals: torch.Tensor, bmap, nb: int, s: int) -> torch.Tensor:
+    """`[F, K, kb, B³]` per-element values → `[F, nb, B³]` per-slot sums over
+    the frames (a row sum dense, `_unbucket` bucketed)."""
+    if bmap is None:
+        return torch.sum(vals, dim=1)
+    return _unbucket(vals, bmap, nb, s)
+
+
 def jv_block(lin: BlockLin, asm: BlockAssembly, v: Params, include_globals: bool = True):
     """J·v — the tangent of the residual parts (y_g, y_r, y_s, y_a).
 
@@ -249,8 +430,12 @@ def jv_block(lin: BlockLin, asm: BlockAssembly, v: Params, include_globals: bool
     pose/intr/dist tangents (the Schur-reduced matvec's voxel-only tangent)."""
     sh = asm.sdf_plan.apply(v.sdf)
     sha = asm.alb_plan.apply(v.albedo)
-    y_g = torch.sum(lin.a_sdf * sh[:10].unsqueeze(1), dim=0)
-    y_g = y_g + torch.sum(lin.a_alb * sha[:4].unsqueeze(1), dim=0)
+    if asm.bmap is None:
+        shf, shaf = sh[:10].unsqueeze(1), sha[:4].unsqueeze(1)  # [t, 1, nb, B³]
+    else:
+        shf, shaf = _gather_rows(sh[:10], asm.bmap), _gather_rows(sha[:4], asm.bmap)  # [t, K, NBc, B³]
+    y_g = torch.sum(lin.a_sdf * shf, dim=0)
+    y_g = y_g + torch.sum(lin.a_alb * shaf, dim=0)
     if include_globals:
         y_g = y_g + jg_apply(lin, v.poses, v.intr, v.dist)
 
@@ -274,7 +459,7 @@ def jtv_block(lin: BlockLin, asm: BlockAssembly, y, include_globals: bool = True
     nb, s = lin.r0_r.shape
     zeros = lambda: y_g.new_zeros(nb, s)  # noqa: E731
 
-    q = torch.sum(lin.a_sdf * y_g.unsqueeze(0), dim=1)  # [10, nb, B³]
+    q = _sum_frames(lin.a_sdf * y_g.unsqueeze(0), asm.bmap, nb, s)  # [10, nb, B³]
     cot = [q[j] for j in range(10)] + [zeros() for _ in range(len(asm.sdf_plan.offsets) - 10)]
     yr = lin.sq_er * y_r
     _ring_into(asm.sdf_plan, cot, -6.0 * yr, yr)
@@ -282,7 +467,7 @@ def jtv_block(lin: BlockLin, asm: BlockAssembly, y, include_globals: bool = True
     cot[c] = cot[c] + lin.sq_es * y_s
     g_sdf = asm.sdf_plan.apply_transpose(torch.stack(cot))
 
-    qa = torch.sum(lin.a_alb * y_g.unsqueeze(0), dim=1)  # [4, nb, B³]
+    qa = _sum_frames(lin.a_alb * y_g.unsqueeze(0), asm.bmap, nb, s)  # [4, nb, B³]
     cot_a = [qa[j] for j in range(4)] + [zeros() for _ in range(len(asm.alb_plan.offsets) - 4)]
     ca = asm.alb_plan.index((0, 0, 0))
     for dd, e in enumerate(_PLUS):
@@ -305,7 +490,7 @@ def diag_from_lin(lin: BlockLin, asm: BlockAssembly) -> Params:
     asq = _f32(lin.a_sdf)
     aasq = _f32(lin.a_alb)
 
-    q2 = torch.sum(asq * asq, dim=1)  # [10, nb, B³]
+    q2 = _sum_frames(asq * asq, asm.bmap, nb, s)  # [10, nb, B³]
     cot = [q2[j] for j in range(10)] + [
         q2.new_zeros(nb, s) for _ in range(len(asm.sdf_plan.offsets) - 10)
     ]
@@ -315,7 +500,7 @@ def diag_from_lin(lin: BlockLin, asm: BlockAssembly) -> Params:
     cot[c] = cot[c] + lin.sq_es * lin.sq_es
     d_sdf = asm.sdf_plan.apply_transpose(torch.stack(cot))
 
-    qa2 = torch.sum(aasq * aasq, dim=1)  # [4, nb, B³]
+    qa2 = _sum_frames(aasq * aasq, asm.bmap, nb, s)  # [4, nb, B³]
     cot_a = [qa2[j] for j in range(4)] + [
         qa2.new_zeros(nb, s) for _ in range(len(asm.alb_plan.offsets) - 4)
     ]

@@ -6,14 +6,15 @@ with the per-voxel top-N, the creation-time validity probe
 (``shading_cost.cpp:136-147``), the ×1000 per-type weight normalization
 (``nls_solver.cpp:379-394``) and the free-parameter masks
 (``optimizer.cpp:285-361``), all computed densely over block slots.
-Per-level statics come from `build_level_static`, once per level.
-
-Not in this slice: frame buckets (`bmap`) and the SPMD `axis_name` mode.
+Per-level statics come from `build_level_static`, once per level. With
+`bmap` the E_g elements are frame-bucketed (`blockform.BlockAssembly`): the
+observations, the validity probe and the weights are evaluated only on each
+frame's visible blocks. The SPMD `axis_name` mode is not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,17 +116,21 @@ def device_assembly(
     fix_intrinsics: bool = False,
     fix_distortion: bool = False,
     use_albedo: bool = True,
+    bmap: Optional[torch.Tensor] = None,  # [K, NBc] int64 frame buckets (blockform), or None
     min_pose_obs: int = 0,
     device="cuda",
 ) -> Tuple[BlockAssembly, Masks]:
-    """One relinearization assembly over the dense frame-major elements.
-    Every tensor argument must already lie on `device`."""
+    """One relinearization assembly over the frame-major elements: dense
+    `[K, nb, B³]`, or frame-bucketed `[K, NBc, B³]` with `bmap`. Every tensor
+    argument must already lie on `device`."""
     dev = resolve_device(device)
     check_on(
         dev, sdf=params.sdf, poses=params.poses, depths=depths, images=images, valid=st.valid,
         sdf_plan_nbr=sdf_plan.nbr, sdf_plan_lane_src=sdf_plan.lane_src,
         alb_plan_nbr=alb_plan.nbr, alb_plan_lane_src=alb_plan.lane_src,
     )
+    if bmap is not None:
+        check_on(dev, bmap=bmap)
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     pyr_scale, voxel_size, truncation = f32(pyr_scale), f32(voxel_size), f32(truncation)
     thres_shell, occlusion_distance, lambdas = f32(thres_shell), f32(occlusion_distance), f32(lambdas)
@@ -176,21 +181,56 @@ def device_assembly(
 
     kframes = params.poses.shape[0]
     kcap = min(num_obs, kframes)
-    eg_gate = (gate & stencil_ok).reshape(d)
+    eg_gate2 = gate & stencil_ok  # [nb, S]
     w_sdf2 = sdf_to_weight(sdfr, truncation)  # [nb, S]
-    weights = compute_observations_batch(
-        cam, params.poses, depths, iso, nflat, occlusion_distance,
-        active=eg_gate.to(torch.float32).unsqueeze(0).expand(kframes, d),
-    )  # [K, D]
-    # frame-major top-N: keep each voxel's num_obs best frames in place (row =
-    # keyframe). The double stable argsort is the per-voxel descending rank
-    # with lax.top_k's tie order (the lower frame index wins).
-    order = torch.argsort(-weights, dim=0, stable=True)
-    rank = torch.argsort(order, dim=0, stable=True)
-    sel = rank < kcap
-    eg_w = torch.where(
-        eg_gate.unsqueeze(0) & sel, weights * w_sdf2.reshape(1, d), torch.zeros_like(weights)
-    ).reshape(kframes, nb, s)
+    if bmap is None:
+        eg_gate = eg_gate2.reshape(d)
+        weights = compute_observations_batch(
+            cam, params.poses, depths, iso, nflat, occlusion_distance,
+            active=eg_gate.to(torch.float32).unsqueeze(0).expand(kframes, d),
+        )  # [K, D]
+        # frame-major top-N: keep each voxel's num_obs best frames in place
+        # (row = keyframe). The double stable argsort is the per-voxel
+        # descending rank with lax.top_k's tie order (the lower frame index
+        # wins).
+        order = torch.argsort(-weights, dim=0, stable=True)
+        rank = torch.argsort(order, dim=0, stable=True)
+        sel = rank < kcap
+        eg_w = torch.where(
+            eg_gate.unsqueeze(0) & sel, weights * w_sdf2.reshape(1, d), torch.zeros_like(weights)
+        ).reshape(kframes, nb, s)
+    else:
+        # frame-bucketed elements: observations only on each frame's visible
+        # blocks (block-row gathers; padding rows index the all-zero pad row,
+        # so their gate, and hence their weight, is 0)
+        nbc = bmap.shape[1]
+        e = nbc * s
+        rows_idx = bmap.reshape(-1)
+        karr = torch.arange(kframes, device=dev).view(kframes, 1)
+
+        def rows2(x):  # per-slot [nb, S] → bucketed [K, E]
+            return pad_flat(x).index_select(0, rows_idx).view(kframes, e)
+
+        def rows3(x):  # per-slot [D, C] → bucketed [K, E, C]
+            x = x.reshape(nb, s, -1)
+            return torch.cat([x, x.new_zeros(1, *x.shape[1:])]).index_select(0, rows_idx).view(kframes, e, -1)
+
+        act_b = rows2(eg_gate2.to(torch.float32))
+        weights_b = compute_observations_batch(
+            cam, params.poses, depths, rows3(iso), rows3(nflat), occlusion_distance, active=act_b,
+        )  # [K, E]
+        # the top-N rank over all frames: one scatter back to per-slot
+        # columns [K, nb+1, S] (the only K×D-sized transient of the bucketed
+        # assembly), the dense branch's double stable argsort, and a gather
+        # back to the buckets
+        wfull = weights_b.new_zeros(kframes, nb + 1, s)
+        wfull[karr, bmap] = weights_b.view(kframes, nbc, s)
+        order = torch.argsort(-wfull.view(kframes, -1), dim=0, stable=True)
+        rank = torch.argsort(order, dim=0, stable=True)
+        sel_b = (rank < kcap).view(kframes, nb + 1, s)[karr, bmap].view(kframes, e)
+        eg_w = torch.where(
+            (act_b > 0.0) & sel_b, weights_b * rows2(w_sdf2), torch.zeros_like(weights_b)
+        ).view(kframes, nbc, s)
 
     # --- E_r / E_s / E_a weights ----------------------------------------------
     one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
@@ -217,6 +257,7 @@ def device_assembly(
         images=images,
         pyr_scale=pyr_scale,
         voxel_size=voxel_size,
+        bmap=bmap,
     )
     sha = alb_plan.apply(params.albedo)
     # validity-only probe: `r != 0` is a pure geometry predicate (see

@@ -6,14 +6,12 @@ Counterpart of `intrinsic3d_tpu/refine/optimizer.py` on one device:
 re-collecting observations with the current parameters, rebuilding the
 assembly with the scheduled λ_r/λ_s and taking one accepted damped
 Gauss-Newton step (`fused_outer_step`); `plan_eg_layout` chooses the level's
-E_g element layout by the JAX package's rules. `prepare_level` builds one
-level's layout, statics and shift plans for a caller that steps it itself.
-
-Only the dense frame-major layout runs: a plan that asks for frame buckets
-or streamed linearization raises `NotImplementedError` (their element
-transport is not ported yet). The JAX package's background `LevelPrep`, its
-out-of-memory replan (which only leads to such plans) and the SPMD mesh
-path are not ported.
+E_g element layout (dense, frame-bucketed, streamed over frame chunks, or
+frame-capped) by the JAX package's rules with the card's own memory
+constants, and a level whose first step runs out of device memory is
+replanned once at 60% of the budget. `prepare_level` builds one level's
+layout, statics and shift plans for a caller that steps it itself. The JAX
+package's background `LevelPrep` and the SPMD mesh path are not ported.
 """
 
 from __future__ import annotations
@@ -47,21 +45,41 @@ from intrinsic3d_torch.refine.solver import gn_iteration
 
 log = logging.getLogger("intrinsic3d")
 
-# The card's peak bytes per dense E_g element through a level's outer steps
-# (images, statics and solver temporaries included): the finest
-# bench_pipeline level's peak, 36.42 GB over 10 × 5,728 × 512 = 29,327,360
-# elements, on an NVIDIA H100 80GB HBM3 (chip_smoke.py's refinement phase;
-# PERF.md). Smaller levels read more (1,268 B at 7.5 M, 1,373 B at 1.8 M
-# elements: their fixed share is larger), but only large levels near the
-# budget turn on it. The JAX package's 720 B is a TPU figure, not used here.
+# The card's peak bytes per E_g element, whole-step peaks of
+# `torch.cuda.max_memory_allocated` over the layout's elements (images,
+# statics and solver temporaries included) on an NVIDIA H100 80GB HBM3 at
+# 700 W. Dense: the finest bench_pipeline level's peak, 36.42 GB over 10 ×
+# 5,728 × 512 elements (chip_smoke.py's refinement phase), and the bench.py
+# step's, 3.337 GB over 2,686,976 elements (tools/profile_torch_eg_memory.py);
+# smaller levels read more (a larger fixed share), but only large levels near
+# the budget turn on it.
 _EG_DENSE_BYTES_PER_ELEMENT = 1242
-# The JAX package's calibrations of the bucketed and streamed layouts (TPU
-# v5e). They only decide which non-dense plan a level would need, and such
-# plans raise here until that transport is ported and measured on the card.
-_EG_BUCKET_BYTES_PER_ELEMENT = 640
-_EG_CHUNK_PERSIST_BYTES = 340
-_EG_CHUNK_TRANSIENT_BYTES = 560
-_EG_ASSEMBLY_BYTES = 340
+# Bucketed one-shot: 2.589 GB over the bench step's 1,966,080 exact-bucket
+# elements, 1,316.6 B (tools/profile_torch_eg_memory.py; the block-row
+# gathers add to the dense figure). As in the JAX package it sizes only the
+# hard per-frame trim (through min(dense, bucket)); the one-shot fit of the
+# exact buckets is judged at the dense figure, 6% under this one, a gap the
+# budget's 30% headroom and the out-of-memory replan cover.
+_EG_BUCKET_BYTES_PER_ELEMENT = 1320
+# Streamed layout (linearize_block_chunked) memory model, the JAX package's:
+#     peak ≈ max(el·ASSEMBLY, el·PERSIST + ⌈K/C⌉·el_frame·TRANSIENT)
+# from tools/profile_torch_eg_memory.py's bucketed steps in C frame chunks:
+# bench step (K = 8) 1,316.6 / 764.3 / 439.3 / 415.1 B per element at C = 1 /
+# 2 / 4 / 8; the 90-frame orbit's finest level (K = 30, 69.8 M elements) out
+# of memory / 714.8 / 417.4 / 339.7 B at C = 1 / 2 / 4 / 8. PERSIST and
+# TRANSIENT are the line through the bench step's C = 1 and C = 2 readings
+# (212.0 + 1,104.6 B), rounded up; it lies above every other reading but the
+# bench step's C = 8, which the assembly's own peak sets, so with ASSEMBLY it
+# bounds the streamed peak from above. PERSIST + TRANSIENT ≥ the dense figure, so a plan that
+# rejects the exact buckets one-shot streams in ≥ 2 chunks, or trims only
+# when one-frame chunks cannot fit (tests/test_torch_buckets.py).
+_EG_CHUNK_PERSIST_BYTES = 220
+_EG_CHUNK_TRANSIENT_BYTES = 1110
+# the assembly phase (observation weights, the top-N rank over all K frames,
+# the validity probe), which chunking cannot shrink: 398.1 B per element at
+# the bench step, 339.7 B at the orbit's finest level (bucketed assembly
+# alone, same tool)
+_EG_ASSEMBLY_BYTES = 400
 # memory kept out of the element budget for everything that is not an E_g
 # element temporary (images, persistent fields, non-element solver temps)
 _EG_HBM_HEADROOM = 4.75e9
@@ -152,6 +170,12 @@ def plan_eg_layout(
             if f_max >= 1:
                 chunks = -(-k // f_max)
                 if chunks > 1:
+                    log.info(
+                        "  E_g exact layout streamed in %d frame chunks (%.1f GB persistent + %.1f GB/chunk "
+                        "transient + %.1f GB assembly <= %.1f GB budget; full %d-block coverage kept)",
+                        chunks, persist / 1e9, min(f_max, k) * per_frame_t / 1e9, assembly / 1e9, budget / 1e9,
+                        fb.shape[1],
+                    )
                     return fb, reason + f", streamed in {chunks} chunks", chunks
         # last resort: per-block frame cap, halved margin and a hard
         # per-frame trim to the budget
@@ -200,12 +224,15 @@ def fused_outer_step(
     min_pose_obs: int = 0,
     cg_coeff_dtype: str = "bfloat16",
     cg_eta: float = 0.1,
+    bmap: Optional[torch.Tensor] = None,
+    eg_chunks: int = 1,
     device="cuda",
 ):
     """One outer iteration of the refinement (``optimizer.cpp:119-173``):
     re-collect observations and rebuild the problem at the current
-    parameters, then relinearize, solve and accept. `cg_coeff_dtype` and
-    `cg_eta` pass through to `gn_iteration`.
+    parameters, then relinearize, solve and accept. `bmap` (frame buckets,
+    on `device`) passes to `device_assembly`; `cg_coeff_dtype`, `cg_eta` and
+    `eg_chunks` pass through to `gn_iteration`.
 
     Returns (params', cost_before, cost_after, mu', num_tries)."""
     basm, bmasks = device_assembly(
@@ -228,12 +255,14 @@ def fused_outer_step(
         fix_intrinsics=fix_intrinsics,
         fix_distortion=fix_distortion,
         use_albedo=use_albedo,
+        bmap=bmap,
         min_pose_obs=min_pose_obs,
         device=device,
     )
     return gn_iteration(
         bparams, basm, bmasks, mu, lm_steps, cg_iters,
-        cg_coeff_dtype=cg_coeff_dtype, schur_globals=schur_globals, cg_eta=cg_eta, device=device,
+        cg_coeff_dtype=cg_coeff_dtype, schur_globals=schur_globals, cg_eta=cg_eta, eg_chunks=eg_chunks,
+        device=device,
     )
 
 
@@ -249,21 +278,29 @@ class LevelSetup(NamedTuple):
     lambdas: torch.Tensor  # [4] raw (λ_g, λ_r, λ_s, λ_a)
     assembly_kw: dict  # num_obs, width, height, fix_*, use_albedo
     device: torch.device
+    bmap: Optional[torch.Tensor] = None  # [K, NBc] frame buckets on `device`, or None (dense)
+    eg_chunks: int = 1  # frame chunks of the streamed linearization (1 = one-shot)
 
     def assemble(self, params: Params, depths, images):
         """`device_assembly` at `params`: (BlockAssembly, Masks)."""
         return device_assembly(
             self.static, self.sdf_plan, self.alb_plan, params, depths, images, *self.scalars,
-            self.lambdas, **self.assembly_kw, device=self.device,
+            self.lambdas, **self.assembly_kw, bmap=self.bmap, device=self.device,
         )
 
     def outer_step(self, params: Params, depths, images, mu, **solver):
-        """`fused_outer_step` at `params`; `solver` holds lm_steps, cg_iters
-        and the optional solver settings."""
+        """`fused_outer_step` at `params` in the level's element layout;
+        `solver` holds lm_steps, cg_iters and the optional solver settings."""
         return fused_outer_step(
             self.static, self.sdf_plan, self.alb_plan, params, depths, images, *self.scalars,
-            self.lambdas, mu, **self.assembly_kw, **solver, device=self.device,
+            self.lambdas, mu, **self.assembly_kw, **solver, bmap=self.bmap, eg_chunks=self.eg_chunks,
+            device=self.device,
         )
+
+
+def _bmap_on(fb: Optional[np.ndarray], dev: torch.device) -> Optional[torch.Tensor]:
+    """Host frame buckets → the int64 index tensor the element transport reads."""
+    return None if fb is None else torch.as_tensor(np.asarray(fb, np.int64), device=dev)
 
 
 def prepare_level(
@@ -279,10 +316,13 @@ def prepare_level(
     pyr_scale: float = 1.0,
     device="cuda",
     layout: Optional[BlockLayout] = None,
+    bmap: Optional[np.ndarray] = None,
+    eg_chunks: int = 1,
 ) -> LevelSetup:
     """Block layout (built unless given), level statics, shift plans and
     block-dense parameters of one level, on `device`. `lambdas` are the raw
-    (λ_g, λ_r, λ_s, λ_a)."""
+    (λ_g, λ_r, λ_s, λ_a); `bmap` (host frame buckets, `plan_eg_layout`'s) and
+    `eg_chunks` set the E_g element layout."""
     dev = resolve_device(device)
     if layout is None:
         layout = BlockLayout.build(grid)
@@ -302,15 +342,18 @@ def prepare_level(
             fix_intrinsics=cfg.fix_intrinsics, fix_distortion=cfg.fix_distortion, use_albedo=cfg.lambda_a >= 0.0,
         ),
         device=dev,
+        bmap=_bmap_on(bmap, dev),
+        eg_chunks=eg_chunks,
     )
 
 
 @dataclasses.dataclass
 class OptimizeStats:
     """Per-iteration record of one level (the JAX package's fields first),
-    plus the level's plan and sizes, its setup and iteration seconds (host
-    clock; every iteration ends on a host read of its costs) and, on the
-    card, its peak allocated bytes."""
+    plus the level's plan and sizes (`bucket_blocks`: blocks per frame row
+    of a bucketed plan, 0 dense; `elements`: the E_g elements K·kb·B³), its
+    setup and iteration seconds (host clock; every iteration ends on a host
+    read of its costs) and, on the card, its peak allocated bytes."""
 
     costs_before: list
     costs_after: list
@@ -318,6 +361,8 @@ class OptimizeStats:
     mus: list = dataclasses.field(default_factory=list)
     reason: str = ""
     num_blocks: int = 0
+    bucket_blocks: int = 0
+    eg_chunks: int = 1
     elements: int = 0
     setup_seconds: float = 0.0
     iter_seconds: list = dataclasses.field(default_factory=list)
@@ -349,48 +394,64 @@ def optimize_level(
 
     The level runs on the block-dense layout with the per-iteration device
     assembly; λ_r and λ_s follow `compute_varying_lambda` over the
-    iterations. `plan_eg_layout` decides the layout against `budget`
-    (default: `eg_hbm_budget(device)`); a plan for frame buckets or streamed
-    linearization raises `NotImplementedError` naming its reason, and an
-    out-of-memory error propagates. `cg_coeff_dtype` and `cg_eta` pass
-    through to `gn_iteration` (the JAX level loop runs its defaults). On the
-    card the peak-memory counter is reset at the start, so `peak_bytes` is
-    this level's peak. `base_cam` is unused, as in the JAX block path."""
+    iterations. `plan_eg_layout` decides the E_g element layout against
+    `budget` (default: `eg_hbm_budget(device)`). When the first outer step
+    runs out of device memory (`torch.cuda.OutOfMemoryError`), the failed
+    attempt's memory is released, the layout is replanned at 60% of that
+    budget and the step retried once, as the JAX package does; a second
+    out-of-memory error, one at a later iteration, or any other error
+    propagates, and no work moves to the CPU. `cg_coeff_dtype` and `cg_eta`
+    pass through to `gn_iteration` (the JAX level loop runs its defaults).
+    On the card the peak-memory counter is reset at the start, so
+    `peak_bytes` is this level's peak. `base_cam` is unused, as in the JAX
+    block path."""
     del base_cam
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     pyr_scale = pyramid_level_to_scale(rgbd_level)
     h, w = int(depths_level.shape[1]), int(depths_level.shape[2])
+    k = int(params.poses.shape[0])
     stats = OptimizeStats([], [], [])
     t0 = time.perf_counter()
     layout = BlockLayout.build(grid)
-    fb, reason, eg_chunks = plan_eg_layout(
-        layout,
-        params.poses.detach().cpu().numpy(),
-        params.intr.detach().cpu().numpy().astype(np.float64) * pyr_scale,
-        cfg,
-        w,
-        h,
-        grid.voxel_size,
-        thres_shell,
-        depths_level.cpu().numpy() if cfg.occlusion_distance > 0.0 else None,
-        budget=budget,
-        device=dev,
-    )
-    if fb is not None or eg_chunks > 1:
-        raise NotImplementedError(
-            f"E_g layout plan '{reason}' ({'dense' if fb is None else f'{fb.shape[1]} blocks/frame'}, "
-            f"{eg_chunks} chunks) needs frame buckets or streamed linearization, which the port does not run yet"
+    if budget is None:
+        budget = eg_hbm_budget(dev)
+
+    def plan(at_budget):
+        return plan_eg_layout(
+            layout,
+            params.poses.detach().cpu().numpy(),
+            params.intr.detach().cpu().numpy().astype(np.float64) * pyr_scale,
+            cfg,
+            w,
+            h,
+            grid.voxel_size,
+            thres_shell,
+            depths_level.cpu().numpy() if cfg.occlusion_distance > 0.0 else None,
+            budget=at_budget,
+            device=dev,
         )
+
+    def record_plan(fb, reason, eg_chunks):
+        stats.reason = reason
+        stats.bucket_blocks = 0 if fb is None else int(fb.shape[1])
+        stats.eg_chunks = eg_chunks
+        stats.elements = k * (stats.bucket_blocks or layout.num_blocks) * layout.block**3
+        if fb is not None:
+            log.info(
+                "  frame buckets: %d blocks/frame of %d (%.0f%% coverage, %s)",
+                fb.shape[1], layout.num_blocks, 100.0 * fb.shape[1] / layout.num_blocks, reason,
+            )
+
+    fb, reason, eg_chunks = plan(budget)
     level = prepare_level(
         grid, level_topology(grid) if topo is None else topo, voxel_sh, params, cfg, thres_shell, w, h,
         lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale, device=dev,
-        layout=layout,
+        layout=layout, bmap=fb, eg_chunks=eg_chunks,
     )
-    stats.reason = reason
+    record_plan(fb, reason, eg_chunks)
     stats.num_blocks = layout.num_blocks
-    stats.elements = int(params.poses.shape[0]) * layout.num_blocks * layout.block**3
     stats.setup_seconds = time.perf_counter() - t0
     log.info(
         "   level setup: %.2fs (%d blocks, %d voxels, %d elements, %s)",
@@ -407,9 +468,33 @@ def optimize_level(
         lambda_r = compute_varying_lambda(itr, cfg.iterations, cfg.lambda_r0, cfg.lambda_r1)
         lambda_s = compute_varying_lambda(itr, cfg.iterations, cfg.lambda_s0, cfg.lambda_s1)
         lambdas = torch.tensor([cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a], dtype=torch.float32, device=dev)
-        bparams, cost0, cost1, mu, tries = level._replace(lambdas=lambdas).outer_step(
-            bparams, depths_level, images_level, mu, **solver
-        )
+        out_of_memory = None
+        try:
+            out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
+        except torch.cuda.OutOfMemoryError as exc:
+            if itr != 0:
+                raise
+            out_of_memory = str(exc)
+        if out_of_memory is not None:
+            # the plan exceeded the card's real memory (mis-calibrated
+            # constants): with the failed attempt's tensors released (the
+            # exception and its frames are gone here), replan at 60% of the
+            # budget — more chunks, or the frame cap — and retry ONCE
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            log.warning(
+                "level step exhausted device memory (%s...); replanning the E_g layout at 60%% budget",
+                out_of_memory[:200],
+            )
+            fb, reason, eg_chunks = plan(0.6 * budget)
+            log.warning(
+                "  retry layout: %s (%s, %d chunks)",
+                "dense" if fb is None else f"{fb.shape[1]} blocks/frame", reason, eg_chunks,
+            )
+            record_plan(fb, reason, eg_chunks)
+            level = level._replace(bmap=_bmap_on(fb, dev), eg_chunks=eg_chunks)
+            out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
+        bparams, cost0, cost1, mu, tries = out
         stats.costs_before.append(float(cost0))
         stats.costs_after.append(float(cost1))
         stats.tries.append(int(tries))

@@ -13,8 +13,11 @@ The PCG and LM loops run on the host: each PCG step reads its residual norm
 and each LM try its acceptance, one device→host sync each (at most
 lm_steps × (cg_iters + 1) per call).
 
-Not in this slice: the flat-table branch (`jax.linearize` of the residual
-stack, `jtj_diag`), `eg_chunks > 1` and the SPMD `axis_name` mode.
+With `eg_chunks > 1` the E_g linearization and the LM acceptance forward
+are streamed over frame chunks (`blockform.linearize_block_chunked`,
+`blockform.block_total_cost`). Not ported: the flat-table branch
+(`jax.linearize` of the residual stack, `jtj_diag`) and the SPMD
+`axis_name` mode.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ def gn_iteration(
     cg_coeff_dtype: str = "bfloat16",
     schur_globals: bool = False,
     cg_eta: float = 0.1,
+    eg_chunks: int = 1,
     device="cuda",
 ) -> Tuple[Params, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """One relinearize→solve→accept cycle (``optimizer.cpp:119-173`` +
@@ -95,6 +99,12 @@ def gn_iteration(
     the PCG loop ("float32" for exact products); the gradient, the Jacobi
     diagonal, the residuals and every accumulation stay float32.
 
+    `eg_chunks > 1` streams the E_g linearization and the LM acceptance cost
+    over that many frame chunks: only the coefficient fields, in
+    `cg_coeff_dtype`, persist through the PCG, and the gradient, diagonal
+    and global Gram are taken from those cast fields (float32-accumulated),
+    as in the JAX package; one-shot takes them from the float32 fields.
+
     Returns (params', cost_before, cost_after, mu', num_tries)."""
     dev = resolve_device(device)
     check_on(
@@ -102,18 +112,21 @@ def gn_iteration(
         sdf_plan_nbr=asm.sdf_plan.nbr, alb_plan_nbr=asm.alb_plan.nbr,
     )
     mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
-    cost0, lin = blockform.linearize_block(params, asm)
+    chunked = eg_chunks > 1
+    if chunked:
+        cost0, lin = blockform.linearize_block_chunked(params, asm, eg_chunks, getattr(torch, cg_coeff_dtype))
+    else:
+        cost0, lin = blockform.linearize_block(params, asm)
     grad = blockform.jtv_block(lin, asm, (lin.r0_g, lin.r0_r, lin.r0_s, lin.r0_a))
     diag = blockform.diag_from_lin(lin, asm)
-    if cg_coeff_dtype != "float32":
+    if not chunked and cg_coeff_dtype != "float32":
         lin = blockform.cast_lin(lin, getattr(torch, cg_coeff_dtype))
     # auto-fix parameters that appear in no residual (zero Jacobian column)
     masks = Params(*(m * (d > 0.0) for m, d in zip(masks, diag)))
     b = _mask(masks, _tmap(lambda g: -g, grad))
 
     def cost_of(cand):
-        r = blockform.block_all_residuals(cand, asm)
-        return 0.5 * torch.sum(r * r)
+        return blockform.block_total_cost(cand, asm, eg_chunks)
 
     def lm_pred(delta, mu):
         # LM model reduction ½·δᵀ(μDδ − g) for the gain ratio

@@ -313,6 +313,12 @@ PIPELINE_REFINEMENT = RefinementConfig(
 )
 PIPELINE_CG_ITERS = 12
 
+# `bench_pipeline.py --frames 90`: the same orbit with three times the
+# frames, so keyframe selection (window 3) keeps 30 keyframes and the finest
+# level's dense E_g elements (~88 M) exceed the card's budget: the planner
+# buckets it (`PIPELINE_REFINEMENT`, frame_bucketing "auto")
+PIPELINE_MANY_KF_DATASET = dict(PIPELINE_DATASET, num_frames=90)
+
 # The scene of the JAX package's end-to-end test (tests/test_intrinsic3d_e2e.py):
 # five views of the default sphere at 96×72, fused at 2 cm, refined over 2
 # grid and 2 pyramid levels

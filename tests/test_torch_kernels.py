@@ -108,6 +108,42 @@ def test_outer_step_on_the_card_matches_the_cpu_path(cuda_device):
     np.testing.assert_allclose([t[:2] for t in traj["cuda"]], [t[:2] for t in traj["cpu"]], rtol=1e-3)
 
 
+@pytest.mark.cuda
+def test_bucketed_streamed_level_on_the_card_matches_the_cpu_path(cuda_device):
+    """A level of the 3-frame sphere in frame-bucketed elements streamed in 2
+    frame chunks (`frame_bucketing="always"` at a budget the planner streams
+    in 2 chunks): the card (K1 and K2 over bucket rows, chunked, scatter-adds
+    by atomics) against the plain versions on the CPU at converged-solve
+    settings (float32 coefficients, 100 CG steps, η = 1e-8): the same plan
+    and tries, costs rtol 1e-3, the refined sdf within 1e-4 m."""
+    from intrinsic3d_torch.config import RefinementConfig
+    from intrinsic3d_torch.refine import optimizer as opt
+    from intrinsic3d_torch.synthetic import build_sphere_problem
+
+    cfg = RefinementConfig(num_observations=2, occlusion_distance=0.04, fix_intrinsics=True, fix_distortion=True,
+                           iterations=2, lm_steps=4, frame_bucketing="always")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        prob = build_sphere_problem(voxel_size=0.015, image_size=(64, 48), num_frames=3, num_observations=2,
+                                    cfg=cfg, perturb_sdf=0.002, perturb_albedo=0.05, device=device)
+        nbc = 56  # the scene's exact buckets (tests/test_torch_buckets.py)
+        budget = (3 * nbc * 512 * opt._EG_CHUNK_PERSIST_BYTES + 2.5 * nbc * 512 * opt._EG_CHUNK_TRANSIENT_BYTES)
+        build.reset_launches()
+        params, _, st = opt.optimize_level(
+            prob.grid, prob.topo, prob.params, cfg, prob.cam, prob.depths, prob.images,
+            prob.voxel_sh, prob.thres_shell, 0, cg_iters=100, cg_eta=1e-8, cg_coeff_dtype="float32",
+            budget=budget, device=device,
+        )
+        runs[device] = (st, params, dict(build.LAUNCHES))
+    (tst, tp, tn), (cst, cp, cn) = runs["cuda"], runs["cpu"]
+    assert tst.reason == cst.reason and tst.eg_chunks == cst.eg_chunks == 2 and tst.bucket_blocks == 56
+    assert tn["bicubic_rows_fwdgrad"] > 0 and tn["bicubic_rows_fwd"] > 0 and tn["nearest_rows"] > 0
+    assert cn == NO_LAUNCHES
+    assert tst.tries == cst.tries
+    np.testing.assert_allclose(tst.costs_before + tst.costs_after, cst.costs_before + cst.costs_after, rtol=1e-3)
+    np.testing.assert_allclose(tp.sdf.cpu().numpy(), cp.sdf.numpy(), atol=1e-4)
+
+
 def _random_field(shape, density, seed):
     rng = np.random.default_rng(seed)
     sdf = rng.normal(0.0, 0.05, shape).astype(np.float32)

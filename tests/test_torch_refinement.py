@@ -12,7 +12,9 @@ Inputs are made with numpy from seeds (or the JAX package's own arrays, via
   3.1e-3);
 - subvolumes, thin-shell voxel sets, upsample and `interpolate_fields`,
   frame buckets and layout plans: exact (integer, boolean or the same numpy
-  code);
+  code); the first cost of a level run in each non-dense plan against JAX's
+  device assembly and residual stack in that layout rtol 1e-4 (the JAX
+  sampler's bf16 hi/lo split);
 - SVSH coefficients and per-voxel SH rtol 1e-4 of the largest value: both
   PCGs run to their step limit at the float32 noise floor, with scatter-adds
   in another order (measured ≤ 2e-6);
@@ -35,7 +37,9 @@ The JAX refinement of the end-to-end scene takes ~2 minutes of this file's
 """
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,6 +62,9 @@ from intrinsic3d_tpu.observations import compute_observation as j_compute_observ
 from intrinsic3d_tpu.observations import recolor as j_recolor
 from intrinsic3d_tpu.refine import blockform as j_bf
 from intrinsic3d_tpu.refine import intrinsic3d as j_i3d
+from intrinsic3d_tpu.refine import optimizer as j_opt
+from intrinsic3d_tpu.refine.device_assembly import build_level_static as j_build_level_static
+from intrinsic3d_tpu.refine.device_assembly import device_assembly as j_device_assembly
 from intrinsic3d_tpu.refine.optimizer import plan_eg_layout as j_plan_eg_layout
 from intrinsic3d_tpu.synthetic import build_sphere_problem as j_build_sphere_problem
 
@@ -354,17 +361,42 @@ def test_frame_buckets_match_jax(problems):
         assert bf.bucket_ladder_down(x) == j_bf.bucket_ladder_down(x)
 
 
+def _jax_first_cost(jp, jcfg, jl, fb) -> float:
+    """JAX's cost at the level's start in the element layout `fb` (None:
+    dense): its device assembly at the first iteration's weights and the
+    residual stack, as `optimize_level`'s first `costs_before`."""
+    st = j_build_level_static(jl, jp.grid, jp.topo, jp.voxel_sh)
+    sp, ap = j_bf.layout_plans(jl)
+    bp = jp.params._replace(sdf=j_bf.table_to_dense(jl, jp.params.sdf),
+                            albedo=j_bf.table_to_dense(jl, jp.params.albedo))
+    scal = (1.0, jp.grid.voxel_size, jp.grid.truncation, jp.thres_shell, jcfg.occlusion_distance)
+    lams = jnp.asarray([jcfg.lambda_g, jcfg.lambda_r0, jcfg.lambda_s0, jcfg.lambda_a], jnp.float32)
+    asm, _ = j_device_assembly(
+        st, sp, ap, bp, jp.depths, jp.images, *(jnp.float32(v) for v in scal), lams, num_obs=jcfg.num_observations,
+        width=64, height=48, fix_poses=jcfg.fix_poses, fix_intrinsics=jcfg.fix_intrinsics,
+        fix_distortion=jcfg.fix_distortion, bmap=None if fb is None else jnp.asarray(fb),
+        min_pose_obs=jcfg.min_pose_obs,
+    )
+    r = np.asarray(jax.jit(j_bf.block_all_residuals)(bp, asm), np.float64)
+    return 0.5 * float(np.sum(r * r))
+
+
 @pytest.mark.parametrize("case", ["dense", "never", "speed", "always", "memory-forced", "streamed", "trimmed"])
-def test_plan_eg_layout_matches_jax(problems, case):
+def test_plan_eg_layout_matches_jax(problems, case, monkeypatch):
     """The same plan (bmap, reason, chunks) as the JAX planner at pinned
-    budgets, one case per rule; the port's `optimize_level` runs the dense
-    plans and raises on every other one."""
+    budgets and with its memory constants pinned on both sides, one case per
+    rule; the port's `optimize_level` runs the plan it makes there, and its
+    first cost matches JAX's in that layout (rtol 1e-4: the JAX sampler's
+    bf16 hi/lo split)."""
     jp, tp = problems
     kw = {"never": dict(frame_bucketing="never"), "always": dict(frame_bucketing="always")}.get(case, {})
     jcfg, tcfg = _cfgs(**kw)
     if case == "speed":
         jp = j_build_sphere_problem(**PROBLEM, cfg=jcfg, eyes=CLOSE_EYES)
         tp = build_sphere_problem(**PROBLEM, cfg=tcfg, eyes=CLOSE_EYES, device="cpu")
+    for name in ("_EG_BUCKET_BYTES_PER_ELEMENT", "_EG_CHUNK_PERSIST_BYTES", "_EG_CHUNK_TRANSIENT_BYTES",
+                 "_EG_ASSEMBLY_BYTES"):
+        monkeypatch.setattr(opt, name, getattr(j_opt, name))
     jl, tl = JBlockLayout.build(jp.grid), BlockLayout.build(tp.grid)
     k, nb, s = 3, tl.num_blocks, tl.block**3
     exact = bf.build_frame_buckets(
@@ -389,16 +421,17 @@ def test_plan_eg_layout_matches_jax(problems, case):
               "trimmed": "trimmed to 16 blocks/frame"}[case]
     assert expect in got[1], got[1]
 
+    monkeypatch.setattr(opt, "plan_eg_layout", functools.partial(opt.plan_eg_layout,
+                                                                 bytes_per_element=JAX_BYTES_PER_ELEMENT))
     tcfg = dataclasses.replace(tcfg, iterations=2)
     args = (tp.grid, tp.topo, tp.params, tcfg, tp.cam, tp.depths, tp.images, tp.voxel_sh, tp.thres_shell, 0)
-    if case in ("dense", "never"):
-        _, _, st = opt.optimize_level(*args, cg_iters=4, budget=budget, device="cpu")
-        assert st.reason == got[1] and len(st.costs_after) == tcfg.iterations
-        assert st.costs_after[-1] < st.costs_before[0]
-    else:
-        port_budget = budget * opt._EG_DENSE_BYTES_PER_ELEMENT / JAX_BYTES_PER_ELEMENT
-        with pytest.raises(NotImplementedError, match="frame buckets or streamed"):
-            opt.optimize_level(*args, budget=port_budget, device="cpu")
+    _, _, st = opt.optimize_level(*args, cg_iters=4, budget=budget, device="cpu")
+    assert st.reason == got[1] and len(st.costs_after) == tcfg.iterations
+    assert st.eg_chunks == got[2] and st.bucket_blocks == (0 if got[0] is None else got[0].shape[1])
+    assert st.elements == k * (st.bucket_blocks or nb) * s
+    assert st.costs_after[-1] < st.costs_before[0]
+    if case not in ("dense", "never"):
+        assert st.costs_before[0] == pytest.approx(_jax_first_cost(jp, jcfg, jl, got[0]), rel=1e-4)
 
 
 # ---------------------------------------------------------------------------
