@@ -40,32 +40,49 @@ tries, 12 CG steps):
    ends at 1 mm, the bicubic and depth-probe kernels launched, and the
    refined SDF meets the analytic sphere's bar.
 
+The three command-line apps (`GoldenSceneSpec.full_scale()`: 30 frames at
+640x480 on disk, 4 mm -> 1 mm over 3 grid and 3 RGB-D levels, 10
+iterations, poses free):
+7. exports the golden dataset under build/, zeroes the counters, runs
+   `app_keyframes.main`, `app_fusion.main` and `app_intrinsic3d.main` with
+   their default device, and reads the counters; prints each app's wall
+   clock, the refinement app's export seconds against its refinement, the
+   launches, the finest refined mesh's distance to the analytic sphere, the
+   keyframe centres' drift, and `LevelTopology.build` of each grid level
+   through the native library against the numpy route
+   (chiprun_out/apps.json); fails unless keyframes.txt selects what
+   `app_keyframes.run` does, the .tsdf reloads bit for bit to
+   `app_fusion.run`'s grid, every level's meshes, poses and intrinsics load
+   finite, K1a, K1b, K2 and K3 launched, the finest mesh's median distance
+   is under half a finest voxel and every keyframe centre stays within
+   0.2 m of the orbit.
+
 Many keyframes (bench_pipeline.py --frames 90: the same orbit with 90
 frames, so 30 keyframes; the finest level's dense E_g elements exceed the
 card's budget):
-7. runs keyframes and fusion, then refines the fused grid with
+8. runs keyframes and fusion, then refines the fused grid with
    `Intrinsic3D.refine` as in step 6, the counters zeroed just before and
    read just after; prints each level's plan (bucket blocks, chunks) and the
    budget arithmetic of every bucketed level; fails unless step 6's bars
    hold, the finest level is frame-bucketed by the planner's own rules and
    no level is frame-capped where one-frame chunks of its exact buckets fit;
-8. from the recorded start of a level, runs 2 outer iterations twice: at
+9. from the recorded start of a level, runs 2 outer iterations twice: at
    2 mm, bucketed one-shot against streamed in 2 chunks; at the finest level
    (whose exact buckets do not fit one-shot), the planner's chunks against
    twice as many; with float32 coefficients the pair must agree (first cost
    rtol 1e-4, trajectory rtol 2e-2), with the production bfloat16 ones the
    difference is printed;
-9. holds the bicubic and depth-probe kernels against their plain versions
-   on the sampler inputs of the finest bucketed level's first call.
+10. holds the bicubic and depth-probe kernels against their plain versions
+    on the sampler inputs of the finest bucketed level's first call.
 
 Then:
-10. holds the distance-transform kernel (several sweeps fused per launch)
+11. holds the distance-transform kernel (several sweeps fused per launch)
     against its plain version bit for bit on the path's window and on a
     411x211x501 field (the Lion dataset's crop volume at 4 mm), with its
     sweeps per launch, launches per call and share of its bound, and the
     masked sampler's forward and backward (on no path) on the sampler
     inputs of step 1;
-11. checks a small fusion problem and a small refinement (the JAX
+12. checks a small fusion problem and a small refinement (the JAX
     package's end-to-end scene) on the card against the CPU path.
 
 Prints the card (`nvidia-smi` name and power limit), one line per phase, a
@@ -598,14 +615,15 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial)
 
 
-def pose_drift(sensor, keyframes, initial) -> str:
-    """How far the refined keyframe poses moved from the sensor's initial
-    (true) ones: median and largest camera-centre shift and rotation."""
+def pose_drift(poses, keyframes, initial) -> str:
+    """How far the refined keyframe poses moved from the initial (true)
+    ones: median and largest camera-centre shift and rotation. `poses` and
+    `initial` are camera-to-world matrices indexed by frame."""
     import numpy as np
 
     shift, angle = [], []
     for i in keyframes:
-        a, b = np.asarray(initial[0][i]), np.asarray(sensor.pose(i))
+        a, b = np.asarray(initial[i]), np.asarray(poses[i])
         shift.append(float(np.linalg.norm(a[:3, 3] - b[:3, 3])))
         cos = (np.trace(a[:3, :3].T @ b[:3, :3]) - 1.0) / 2.0
         angle.append(float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))))
@@ -644,7 +662,8 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
         f"unrefined median {med0:.6f} m (bar: median < {refined.voxel_size} m and <= 1.1 x unrefined)")
     if not (n_shell > 1000 and med < refined.voxel_size and med <= 1.1 * med0):
         fail("the refined SDF misses the analytic sphere's bar")
-    log(f"  {pose_drift(sensor, keyframes, run['initial'])}")
+    refined_poses = [sensor.pose(i) for i in range(sensor.num_frames)]
+    log(f"  {pose_drift(refined_poses, keyframes, run['initial'][0])}")
 
 
 def refinement_phase(fusion: dict) -> dict:
@@ -851,6 +870,202 @@ def many_keyframe_phase() -> dict:
     return dict(launches=run["launches"], levels=run["levels"], total_s=run["total_s"], captured=captured)
 
 
+def numpy_route_grid(grid):
+    """`grid` with its neighbor tables built through the numpy route
+    (`find_indices`) instead of the native library: the timing pair of
+    `apps_phase`."""
+    import dataclasses
+
+    from intrinsic3d_torch.grid.voxel_grid import VoxelGrid, find_indices
+
+    class NumpyGrid(VoxelGrid):
+        def neighbor_table(self, offsets):
+            return find_indices(self.keys, self.coords[:, None, :] + offsets[None, :, :])
+
+    return NumpyGrid(**{f.name: getattr(grid, f.name) for f in dataclasses.fields(VoxelGrid)})
+
+
+def topology_pair(grids: dict) -> dict:
+    """Each grid level's `LevelTopology.build` through the native library and
+    through the numpy route, back to back on the same grid; the tables must
+    be equal. Seconds by level."""
+    import numpy as np
+
+    from intrinsic3d_torch.refine.assembly import LevelTopology
+
+    out = {}
+    for tag, grid in grids.items():
+        t0 = time.perf_counter()
+        native_topo = LevelTopology.build(grid)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numpy_topo = LevelTopology.build(numpy_route_grid(grid))
+        numpy_s = time.perf_counter() - t0
+        for f in ("eg_sdf10_idx", "eg_alb4_idx", "ring6_idx", "nbr4_idx", "ea_pairs", "coords"):
+            if not np.array_equal(getattr(native_topo, f), getattr(numpy_topo, f)):
+                fail(f"topology {tag}: the native library's {f} differs from the numpy route's")
+        out[tag] = dict(voxels=grid.num_voxels, native_s=native_s, numpy_s=numpy_s)
+    return out
+
+
+APP_STAGES = (("keyframes", "keyframes.yml"), ("fusion", "fusion.yml"), ("intrinsic3d", "intrinsic3d.yml"))
+
+
+def apps_phase() -> dict:
+    """The three command-line apps on the card at `GoldenSceneSpec.full_scale()`
+    (30 frames at 640x480, 4 mm -> 1 mm over 3 grid and 3 RGB-D levels, 10
+    iterations, 5 observations): the dataset is exported under build/, the
+    counters zeroed, and each app's `main` run with its default device, the
+    working directory restored between them. Then the files are checked
+    against the in-process stages and the scene's analytic sphere and orbit.
+    Returns the launches."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from intrinsic3d_torch.apps import app_fusion, app_intrinsic3d, app_keyframes
+    from intrinsic3d_torch.camera import Camera
+    from intrinsic3d_torch.config import FusionConfig, KeyframesConfig, SensorConfig, Settings, resolve_relative
+    from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
+    from intrinsic3d_torch.io.dataset import SensorI3D
+    from intrinsic3d_torch.io.golden_dataset import GoldenSceneSpec, export_sphere_dataset
+    from intrinsic3d_torch.io.ply import load_ply
+    from intrinsic3d_torch.io.trajectory import load_poses
+    from intrinsic3d_torch.keyframes import KeyframeSelection
+    from intrinsic3d_torch.mesh.metrics import mesh_error_vs_analytic, sample_surface
+    from intrinsic3d_torch.ops import build
+    from intrinsic3d_torch.refine import intrinsic3d
+
+    spec = GoldenSceneSpec.full_scale()
+    root = REPO / "build" / "apps_full_scale"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    sensor_yml = export_sphere_dataset(str(root), spec)
+    export_s = time.perf_counter() - t0
+    apps = dict(keyframes=app_keyframes, fusion=app_fusion, intrinsic3d=app_intrinsic3d)
+
+    # the grid each grid level's topology is built from, coarsest first
+    # (references only)
+    level_grids, real_topology = [], intrinsic3d.level_topology
+
+    def keep_grid(grid):
+        if not any(g is grid for g in level_grids):
+            level_grids.append(grid)
+        return real_topology(grid)
+
+    cwd = os.getcwd()
+    wall, stats = {}, {}
+    intrinsic3d.level_topology = keep_grid
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        for stage, cfg in APP_STAGES:
+            kw = dict(stats=stats) if stage == "intrinsic3d" else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rc = apps[stage].main(["-s", sensor_yml, "-c", str(root / cfg)], **kw)
+            finally:
+                os.chdir(cwd)
+            torch.cuda.synchronize()
+            wall[stage] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"app_{stage}.main returned {rc}")
+        launches = dict(build.LAUNCHES)
+    finally:
+        intrinsic3d.level_topology = real_topology
+    # the engine numbers its grid levels from the finest (0) up
+    level_grids = {f"g{spec.grid_levels - 1 - i}": g for i, g in enumerate(level_grids)}
+
+    exports_s = stats.get("exports", 0.0)
+    log(f"phase apps: GoldenSceneSpec.full_scale() ({spec.num_frames} frames {spec.width}x{spec.height}, "
+        f"{spec.voxel_size * 1e3:.0f} mm, {spec.grid_levels} grid x {spec.rgbd_levels} RGB-D levels, "
+        f"{spec.iterations} iterations) exported in {export_s:.2f}s (host)")
+    log("  app wall clock (s, device synchronized at each end): "
+        + " ".join(f"{k}={v:.4f}" for k, v in wall.items()))
+    log(f"  app_intrinsic3d: callback exports (meshes, PLY, poses, intrinsics) {exports_s:.4f}s, refinement "
+        f"{wall['intrinsic3d'] - exports_s:.4f}s")
+    log("  app_intrinsic3d phases (s): " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
+    log(f"  launches {launches}")
+    for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows", "correct_sdf_dense"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was never launched by the apps")
+
+    # keyframes.txt against the in-memory stage on the same sensor
+    scfg = SensorConfig.from_settings(Settings.load(sensor_yml))
+    sensor = SensorI3D(resolve_relative(sensor_yml, scfg.dataset), scfg)
+    kcfg = KeyframesConfig.from_settings(Settings.load(str(root / "keyframes.yml")))
+    written = KeyframeSelection.load(str(root / "fusion" / "keyframes.txt"))
+    sel = app_keyframes.run(sensor, kcfg)
+    if list(written.is_keyframe) != list(sel.is_keyframe) or sel.count() == 0:
+        fail(f"keyframes.txt selects {written.keyframe_ids()}, app_keyframes.run {sel.keyframe_ids()}")
+
+    # the .tsdf against the in-memory fusion of the same sensor
+    fcfg = FusionConfig.from_settings(Settings.load(str(root / "fusion.yml")))
+    fused = app_fusion.run(sensor, fcfg)
+    loaded = VoxelGrid.load(str(root / "fusion" / "volume.tsdf"), sensor.depth_min, sensor.depth_max)
+    same = (np.array_equal(loaded.coords, fused.coords) and np.array_equal(loaded.sdf, fused.sdf)
+            and np.array_equal(loaded.weight, fused.weight)
+            and np.array_equal(loaded.color, np.clip(fused.color, 0, 255).astype(np.uint8).astype(np.float32)))
+    if not same or loaded.num_voxels < 1000:
+        fail("the written .tsdf does not reload to the grid app_fusion.run returns")
+    log(f"  keyframes.txt selects {sel.keyframe_ids()} as app_keyframes.run does; volume.tsdf reloads to "
+        f"app_fusion.run's grid bit for bit ({loaded.num_voxels} voxels)")
+
+    # every level's files
+    levels = [(g, p) for g in range(spec.grid_levels - 1, -1, -1) for p in range(spec.rgbd_levels - 1, -1, -1)
+              if p == 0 or g == spec.grid_levels - 1]
+    out = root / "intrinsic3d"
+    for g, p in levels:
+        tag = f"g{g}_p{p}"
+        for suffix in ("", "_albedo"):
+            v, f, c = load_ply(str(out / f"mesh_{tag}{suffix}.ply"))
+            if len(f) < 100 or c is None or not np.isfinite(v).all():
+                fail(f"mesh_{tag}{suffix}.ply: {len(f)} faces, colors {c is not None}")
+        poses, _ = load_poses(str(out / f"poses_{tag}.txt"))
+        if len(poses) != spec.num_frames or not np.isfinite(np.stack(poses)).all():
+            fail(f"poses_{tag}.txt: {len(poses)} poses")
+        cam = Camera.load(str(out / f"intrinsics_{tag}.txt"))
+        if (cam.width, cam.height) != (spec.width, spec.height) or not np.isfinite(cam.matrix()).all():
+            fail(f"intrinsics_{tag}.txt: {cam}")
+    log(f"  per-level files of {len(levels)} levels written and loaded: meshes (voxel colors, albedo), "
+        f"{spec.num_frames} TUM poses, intrinsics")
+
+    # the finest refined mesh against the analytic sphere
+    center, radius = np.asarray(spec.center), spec.radius
+    v, f, _ = load_ply(str(out / "mesh_g0_p0.ply"))
+    sphere = lambda p: np.linalg.norm(p - center, axis=-1) - radius  # noqa: E731
+    err = mesh_error_vs_analytic(v, f, sphere)
+    median = float(np.median(np.abs(sphere(sample_surface(v, f, 50000, 0)))))
+    finest = spec.voxel_size / 2 ** (spec.grid_levels - 1)
+    log(f"  finest refined mesh ({len(v)} vertices, {len(f)} faces) vs the analytic sphere: median "
+        f"{median * 1e3:.4f} mm, mean {err['mean'] * 1e3:.4f} mm, rms {err['rms'] * 1e3:.4f} mm, p95 "
+        f"{err['p95'] * 1e3:.4f} mm, max {err['max'] * 1e3:.4f} mm (bar: median < {finest / 2 * 1e3:.2f} mm)")
+    if not median < finest / 2:
+        fail("the finest refined mesh misses the analytic sphere's bar")
+
+    # refined keyframe centres against the orbit, and their drift
+    poses, _ = load_poses(str(out / "poses_g0_p0.txt"))
+    kf = written.keyframe_ids()
+    true = [np.loadtxt(str(root / "rgbd" / f"frame-{i:06d}.pose.txt")) for i in range(spec.num_frames)]
+    centre_err = [float(np.linalg.norm(poses[i][:3, 3] - true[i][:3, 3])) for i in kf]
+    log(f"  refined keyframes {kf}: {pose_drift(poses, kf, true)}; largest centre error "
+        f"{max(centre_err) * 1e3:.3f} mm (bar: < 200 mm)")
+    if not max(centre_err) < 0.2:
+        fail("a refined keyframe centre left the orbit by 0.2 m or more")
+
+    topo = topology_pair(level_grids)
+    log("  level topology (s), native library against the numpy route on the same grid: " + " ".join(
+        f"{k}: {t['voxels']} voxels native {t['native_s']:.4f} numpy {t['numpy_s']:.4f}" for k, t in topo.items()))
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    (REPO / "chiprun_out" / "apps.json").write_text(json.dumps(dict(
+        export_s=export_s, wall_s=wall, exports_s=exports_s, phases=stats, launches=launches,
+        mesh_error=dict(err, median=median), keyframes=kf, centre_err=centre_err, topology=topo), indent=1))
+    return dict(launches=launches)
+
+
 def small_refinement_agrees() -> None:
     """The end-to-end test's scene (5 frames at 96x72, 2 grid and 2 pyramid
     levels) refined from one fused grid on the card and through the plain CPU
@@ -1017,7 +1232,14 @@ def main() -> int:
     del fusion
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
 
-    # --- phase 6: the 90-frame orbit (30 keyframes) refined through frame
+    # --- phase 6: the three command-line apps at GoldenSceneSpec.full_scale();
+    # counts zeroed just before the first app and read just after the last
+    apps = apps_phase()
+    for r in records:
+        r["launches_apps"] = apps["launches"][r["name"]]
+    log("phase check: the apps wrote every file, matched the in-process stages and met their bars")
+
+    # --- phase 7: the 90-frame orbit (30 keyframes) refined through frame
     # buckets and streamed linearization; counts zeroed just before and read
     # just after. Then K1 and K2 against their plain versions on the sampler
     # inputs of the finest bucketed level's first call
@@ -1034,22 +1256,24 @@ def main() -> int:
     del many
     log("phase kernels: every kernel of the bucketed path agrees with its plain version")
 
-    # --- phase 7: the distance-transform kernel and the sampler's second entry
+    # --- phase 8: the distance-transform kernel and the sampler's second entry
     # against their plain versions
     rec = check_distance_transform(window_inputs)
     rec.update(launches=fusion_launches["correct_sdf_dense"], status="ok",
                launches_pipeline_refinement=refinement["launches"]["correct_sdf_dense"],
+               launches_apps=apps["launches"]["correct_sdf_dense"],
                launches_many_keyframe_refinement=many_launches["correct_sdf_dense"])
     records.append(rec)
     del window_inputs
     for rec in check_sampler_sample(rows_inputs):
         rec.update(launches=0, status="ok", launches_pipeline_refinement=refinement["launches"][rec["name"]],
+                   launches_apps=apps["launches"][rec["name"]],
                    launches_many_keyframe_refinement=many_launches[rec["name"]])
         records.append(rec)
     del rows_inputs
     log("phase kernels: the distance-transform kernel and bicubic_sample agree with their plain versions")
 
-    # --- phase 8: small fusion and refinement problems on the card against the
+    # --- phase 9: small fusion and refinement problems on the card against the
     # CPU path
     small_fusion_agrees()
     log("phase check: the card's fusion matches the plain CPU path")

@@ -1,9 +1,10 @@
-"""TSDF fusion (counterpart of `intrinsic3d_tpu/apps/app_fusion.py::run`, the
+"""TSDF fusion CLI (counterpart of `intrinsic3d_tpu/apps/app_fusion.py`, the
 reference's AppFusion, ``apps/src/app_fusion.cpp``): fuse all frames, or the
 keyframes of a `keyframes.txt`, into the sparse voxel grid on the device,
-run the distance-transform correction and drop unseen voxels. The
-command-line `main()`, its YAML settings, and the `.tsdf` and mesh outputs
-wait for the port's apps stage.
+run the distance-transform correction, drop unseen voxels, and save the
+`.tsdf` volume and a marching-cubes mesh.
+
+Usage: python -m intrinsic3d_torch.apps.app_fusion -s sensor.yml -c fusion.yml
 """
 
 from __future__ import annotations
@@ -15,13 +16,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from intrinsic3d_torch.config import FusionConfig
+from intrinsic3d_torch.apps.common import ensure_parent, load_sensor, make_parser, setup_logging
+from intrinsic3d_torch.config import FusionConfig, Settings
 from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid import algorithms as alg
 from intrinsic3d_torch.grid.fusion import FusionVolume, compute_scene_voxel_bounds
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
 from intrinsic3d_torch.image.processing import erode_discontinuities
+from intrinsic3d_torch.io.ply import save_ply
 from intrinsic3d_torch.keyframes import KeyframeSelection
+from intrinsic3d_torch.mesh import extract_surface
 
 log = logging.getLogger("intrinsic3d")
 
@@ -93,3 +97,26 @@ def run(sensor, cfg: FusionConfig, device="cuda", stats: Optional[dict] = None) 
     if stats is not None:
         stats["kept"] = grid.num_voxels
     return grid
+
+
+def main(argv=None, device="cuda"):
+    args = make_parser("TSDF volumetric fusion").parse_args(argv)
+    setup_logging(args.verbose)
+    sensor = load_sensor(args.sensor)
+    cfg = FusionConfig.from_settings(Settings.load(args.config))
+    grid = run(sensor, cfg, device=device)
+
+    if cfg.output_sdf:
+        ensure_parent(cfg.output_sdf)
+        grid.save(cfg.output_sdf)
+        log.info("saved %s", cfg.output_sdf)
+    if cfg.output_mesh:
+        ensure_parent(cfg.output_mesh)
+        verts, faces, cols = extract_surface(grid)
+        save_ply(cfg.output_mesh, verts, faces, cols)
+        log.info("saved %s (%d verts, %d faces)", cfg.output_mesh, len(verts), len(faces))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

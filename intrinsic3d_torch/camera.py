@@ -2,8 +2,9 @@
 
 Torch counterpart of `intrinsic3d_tpu/camera.py` (reference
 ``camera.cpp:124-199``, ``camera.h:92-126``): the camera record, the
-3-radial + 2-tangential distortion and the distorted projection. File I/O
-stays in the JAX package until the port reaches the apps.
+3-radial + 2-tangential distortion, the distorted projection, and the
+reference's camera and intrinsics text files (``camera.cpp:200-274``,
+``sensor_i3d.cpp:147-181``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,56 @@ class Camera:
         dist = np.zeros(5, np.float32) if dist is None else np.asarray(dist, np.float32)
         h = lambda v: float(np.float32(v))  # noqa: E731
         return cls(h(fx), h(fy), h(cx), h(cy), int(width), int(height), dist)
+
+    @classmethod
+    def from_matrix(cls, K, width, height, dist=None) -> "Camera":
+        K = np.asarray(K)
+        return cls.create(K[0, 0], K[1, 1], K[0, 2], K[1, 2], width, height, dist)
+
+    def matrix(self) -> np.ndarray:
+        return np.array(
+            [
+                [float(self.fx), 0.0, float(self.cx)],
+                [0.0, float(self.fy), float(self.cy)],
+                [0.0, 0.0, 1.0],
+            ],
+            dtype=np.float32,
+        )
+
+    # -- file I/O (reference-compatible text format) -----------------------
+
+    @classmethod
+    def load(cls, filename: str) -> "Camera":
+        """Load `w h / K(3x3) / dist(5)` text format (``camera.cpp:200-240``)."""
+        vals = _read_floats(filename)
+        w, h = int(vals[0]), int(vals[1])
+        K = np.array(vals[2:11]).reshape(3, 3)
+        dist = np.array(vals[11:16], dtype=np.float32)
+        return cls.from_matrix(K, w, h, dist)
+
+    def save(self, filename: str) -> None:
+        """Write `w h / K rows / dist` text (``camera.cpp:242-274``); the
+        intrinsics may be floats or 0-dim tensors on any device."""
+        d = torch.as_tensor(self.dist).detach().cpu().numpy()
+        with open(filename, "w") as f:
+            f.write(f"{self.width} {self.height}\n")
+            f.write(f"{float(self.fx)} 0 {float(self.cx)}\n")
+            f.write(f"0 {float(self.fy)} {float(self.cy)}\n")
+            f.write("0 0 1\n")
+            f.write(" ".join(str(float(x)) for x in d) + "\n")
+
+
+def _read_floats(filename: str):
+    with open(filename) as f:
+        return [float(t) for t in f.read().split()]
+
+
+def load_intrinsics_matrix(filename: str) -> np.ndarray:
+    """Parse the dataset's 4x4 intrinsics text file, returning the 3x3 K
+    (``sensor_i3d.cpp:147-181``)."""
+    vals = _read_floats(filename)
+    M = np.array(vals[:16]).reshape(4, 4)
+    return M[:3, :3].astype(np.float32)
 
 
 def distort(dist, x, y):

@@ -1,10 +1,11 @@
 """Flat sorted voxel table (host numpy).
 
-Copy of the numpy part of `intrinsic3d_tpu/grid/voxel_grid.py`: packed
-coordinate keys, the stencil offset tables, `find_indices` by vectorized
-binary search, and the `VoxelGrid` record with the structural helpers the
-refinement and fusion use. TSDF I/O and the native C++ lookup stay in the
-JAX package until the port reaches them.
+Copy of `intrinsic3d_tpu/grid/voxel_grid.py`: packed coordinate keys, the
+stencil offset tables, `find_indices` by vectorized binary search, and the
+`VoxelGrid` record with its structural helpers and `.tsdf` I/O. The grid's
+own neighbor tables and lookups go through the native host library
+(`intrinsic3d_torch.native`), as in the JAX package; `find_indices` is their
+plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from intrinsic3d_torch import native
+from intrinsic3d_torch.io.tsdf_io import TsdfVolume, load_tsdf, save_tsdf
 
 # 21 bits per axis, offset so coordinates in [-2^20, 2^20) pack monotonically
 _BIAS = 1 << 20
@@ -149,13 +153,15 @@ class VoxelGrid:
         return self.sdf_refined is not None
 
     def neighbor_table(self, offsets: np.ndarray) -> np.ndarray:
-        """Gather-index table `[N, S]` for stencil offsets `[S, 3]`; −1 absent."""
-        q = self.coords[:, None, :] + np.asarray(offsets, np.int32)[None, :, :]
-        return find_indices(self.keys, q)
+        """Gather-index table `[N, S]` for stencil offsets `[S, 3]`; −1 absent
+        (native hash table)."""
+        return native.neighbor_table(self.coords, np.asarray(offsets, np.int32))
 
     def lookup(self, coords: np.ndarray) -> np.ndarray:
-        """Table indices of query coords `[..., 3]` (−1 where absent)."""
-        return find_indices(self.keys, np.asarray(coords, dtype=np.int64))
+        """Table indices of query coords `[..., 3]` (−1 where absent; native
+        hash table)."""
+        coords = np.asarray(coords, dtype=np.int64)
+        return native.find_indices(self.coords, coords.reshape(-1, 3)).reshape(coords.shape[:-1])
 
     def exists(self, coords: np.ndarray) -> np.ndarray:
         return self.lookup(coords) >= 0
@@ -202,3 +208,36 @@ class VoxelGrid:
 
     def clone(self) -> "VoxelGrid":
         return self.select(np.arange(self.num_voxels))
+
+    # -- serialization (.tsdf) --------------------------------------------
+
+    def to_tsdf(self) -> TsdfVolume:
+        return TsdfVolume(
+            voxel_size=self.voxel_size,
+            truncation=self.truncation,
+            integration_weight_sample=self.integration_weight_sample,
+            coords=self.coords,
+            sdf=self.sdf.astype(np.float64 if self.is_sbr else np.float32),
+            weight=self.weight,
+            color=np.clip(self.color, 0, 255).astype(np.uint8),
+            albedo=None if self.albedo is None else self.albedo.astype(np.float64),
+            sdf_refined=None if self.sdf_refined is None else self.sdf_refined.astype(np.float64),
+        )
+
+    def save(self, filename: str) -> None:
+        save_tsdf(filename, self.to_tsdf())
+
+    @classmethod
+    def load(cls, filename: str, depth_min: float = 0.1, depth_max: float = 10.0) -> "VoxelGrid":
+        vol = load_tsdf(filename)
+        g = cls.from_coords(vol.voxel_size, vol.coords, depth_min, depth_max, sbr=vol.is_sbr)
+        # re-sort payload to match key order
+        order = np.argsort(pack_coords(vol.coords.astype(np.int64)), kind="stable")
+        g.sdf = vol.sdf[order].astype(np.float32)
+        g.weight = vol.weight[order].astype(np.float32)
+        g.color = vol.color[order].astype(np.float32)
+        g.integration_weight_sample = vol.integration_weight_sample
+        if vol.is_sbr:
+            g.albedo = vol.albedo[order].astype(np.float32)
+            g.sdf_refined = vol.sdf_refined[order].astype(np.float32)
+        return g

@@ -527,13 +527,25 @@ def test_fusion_entry_points_default_to_the_card(orbit, monkeypatch):
 
 def test_port_imports_no_jax():
     """Every module of `intrinsic3d_torch`, and `chip_smoke.py`, imported in
-    a fresh interpreter, load no module of JAX or of the JAX package."""
+    a fresh interpreter, load no module of JAX or of the JAX package; nor do
+    the three apps' `main`s (resolved, not run) and a call into the native
+    host library (built on first use)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')], 'jax preloaded'\n"
         "import intrinsic3d_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(intrinsic3d_torch.__path__, 'intrinsic3d_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "new = ['native', 'visualization', 'io.dataset', 'io.golden_dataset', 'io.ply', 'io.trajectory',\n"
+        "       'io.tsdf_io', 'mesh.extract', 'mesh.marching_cubes', 'mesh.metrics', 'mesh.util',\n"
+        "       'apps.common', 'apps.app_intrinsic3d']\n"
+        "missing = [n for n in new if 'intrinsic3d_torch.' + n not in names]\n"
+        "assert not missing, missing\n"
+        "from intrinsic3d_torch.apps import app_fusion, app_intrinsic3d, app_keyframes\n"
+        "assert all(callable(m.main) for m in (app_fusion, app_intrinsic3d, app_keyframes))\n"
+        "import numpy as np\n"
+        "from intrinsic3d_torch import native\n"
+        "assert native.find_indices(np.zeros((2, 3), np.int32) + [[0, 0, 0], [1, 2, 3]], [[1, 2, 3]])[0] == 1\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'intrinsic3d_tpu'))\n"
         "print(len(names), bad)\n"

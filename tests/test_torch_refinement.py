@@ -479,7 +479,8 @@ def e2e():
                        device="cpu")
     teng.add_callback(lambda i: tinfos.append((i.grid_level, i.pyramid_level, i.stats)))
     tref = teng.refine(fused)
-    return dict(levels=levels, jinfos=jinfos, jref=jref, tinfos=tinfos, tref=tref)
+    return dict(levels=levels, jinfos=jinfos, jref=jref, tinfos=tinfos, tref=tref, jsensor=jeng.sensor,
+                tsensor=teng.sensor)
 
 
 def test_optimize_level_matches_jax(e2e):
@@ -525,6 +526,25 @@ def test_refine_matches_jax(e2e):
     # gate may pick another frame (measured: 1 of 9,276 voxels, by 6.9)
     dcol = np.abs(tref.color[ti] - jref.color[ji]).max(axis=1)
     assert np.mean(dcol > 0.5) <= 0.005 and np.median(dcol) < 1e-2
+
+
+def test_refined_poses_and_camera_match_jax(e2e):
+    """The final keyframe poses and color camera both engines wrote back
+    into their sensors. The scene's config fixes the poses (as the JAX
+    end-to-end test does), so this pins the write-back chain: angle-axis →
+    matrix → inverse, and the camera rebuilt from the refined intrinsics:
+    atol 1e-6 (measured: equal to JAX's, and 1.1e-7 from the sensor's
+    initial poses, float32 angle-axis round-trip). The refinement of free
+    poses is held to JAX in tests/test_torch_apps.py and
+    tests/test_torch_pose_refinement.py."""
+    js, ts = e2e["jsensor"], e2e["tsensor"]
+    for i in range(5):
+        np.testing.assert_allclose(ts.pose(i), np.asarray(js.pose(i)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ts.pose(3), small_refinement_sensor().pose(3), rtol=0, atol=1e-6)
+    jcam, tcam = js.color_cam, ts.color_cam
+    np.testing.assert_array_equal(
+        [tcam.fx, tcam.fy, tcam.cx, tcam.cy], [float(jcam.fx), float(jcam.fy), float(jcam.cx), float(jcam.cy)])
+    np.testing.assert_array_equal(tcam.dist, np.asarray(jcam.dist))
 
 
 def test_refinement_entry_points_default_to_the_card(problems, monkeypatch):
