@@ -17,11 +17,32 @@ The refinement outer step:
    `refine.optimizer.fused_outer_step`, and reads the counters (every kernel
    of the path must have run);
 4. checks the result on a small problem against the port's plain CPU path
-   (which the repo's tests hold against the JAX package).
+   (which the repo's tests hold against the JAX package);
+5. drives the flat-table oracle on the same bench-scale problem: builds
+   `SphereProblem.assemble()` on the card (its active E_g count printed
+   beside the block assembly's), recording in a warm-up flat outer step the
+   inputs the flat path hands each kernel; holds the bicubic and
+   depth-probe kernels against their plain versions on those inputs (the
+   `flat` sub-record of each kernel record); re-lays the problem with
+   `to_block_problem`, holds flat against block costs (rtol 1e-4) and
+   gradients (rtol 2e-4 with an absolute floor of 2e-4 x the leaf's
+   largest magnitude, at least 1e-6: both are atomic sums in different
+   orders), and prints, from float64 copies of both problems sampled
+   through the plain sampler on the card, the float64 flat-vs-block
+   gradient gap (bar 1e-9 x the leaf's largest magnitude) and each float32
+   path's error against float64, which the floor must cover; takes one
+   flat `gn_iteration` (3 LM tries, 6 CG steps) against the block one in
+   float32 (cost before rtol 1e-4, after rtol 1e-3; sdf and poses rtol
+   5e-3, atol 5e-6; no accepted cost rises), times the flat and block steps
+   with the launch counters zeroed just before the flat outer step
+   (assembly + step) and read just after (`launches_flat`, where the
+   bicubic and depth-probe kernels must have run), and runs
+   `optimize_level(use_blocks=False)` for 3 iterations on the small sphere
+   of step 4 (no accepted cost may rise).
 
 Keyframe selection and TSDF fusion (stages 1 and 2 of bench_pipeline.py: 30
 frames at 640x480, voxel 0.004 m, clip bounds +-2.5 radius):
-5. builds the orbit dataset on the host, runs `app_keyframes.run` and
+6. builds the orbit dataset on the host, runs `app_keyframes.run` and
    `app_fusion.run` on the card once as a warm-up (recording the dense
    distance-transform kernel's inputs), then again with the counters zeroed
    just before and read just after, and holds the fused SDF to the analytic
@@ -30,7 +51,7 @@ frames at 640x480, voxel 0.004 m, clip bounds +-2.5 radius):
 The refinement (stage 3 of bench_pipeline.py: 3 grid levels from 4 mm to
 1 mm, 3 pyramid levels, 10 outer iterations each, 5 observations, 50 LM
 tries, 12 CG steps):
-6. refines the measured run's fused grid with `Intrinsic3D.refine` from the
+7. refines the measured run's fused grid with `Intrinsic3D.refine` from the
    sensor's initial poses, the counters zeroed just before and read just
    after; prints each level's size, plan, iteration times, costs, tries, mu
    and peak memory (bytes per dense element), the phase seconds and how far
@@ -43,7 +64,7 @@ tries, 12 CG steps):
 The three command-line apps (`GoldenSceneSpec.full_scale()`: 30 frames at
 640x480 on disk, 4 mm -> 1 mm over 3 grid and 3 RGB-D levels, 10
 iterations, poses free):
-7. exports the golden dataset under build/, zeroes the counters, runs
+8. exports the golden dataset under build/, zeroes the counters, runs
    `app_keyframes.main`, `app_fusion.main` and `app_intrinsic3d.main` with
    their default device, and reads the counters; prints each app's wall
    clock, the refinement app's export seconds against its refinement, the
@@ -60,33 +81,38 @@ iterations, poses free):
 Many keyframes (bench_pipeline.py --frames 90: the same orbit with 90
 frames, so 30 keyframes; the finest level's dense E_g elements exceed the
 card's budget):
-8. runs keyframes and fusion, then refines the fused grid with
-   `Intrinsic3D.refine` as in step 6, the counters zeroed just before and
+9. runs keyframes and fusion, then refines the fused grid with
+   `Intrinsic3D.refine` as in step 7, the counters zeroed just before and
    read just after; prints each level's plan (bucket blocks, chunks) and the
-   budget arithmetic of every bucketed level; fails unless step 6's bars
+   budget arithmetic of every bucketed level; fails unless step 7's bars
    hold, the finest level is frame-bucketed by the planner's own rules and
    no level is frame-capped where one-frame chunks of its exact buckets fit;
-9. from the recorded start of a level, runs 2 outer iterations twice: at
+10. from the recorded start of a level, runs 2 outer iterations twice: at
    2 mm, bucketed one-shot against streamed in 2 chunks; at the finest level
    (whose exact buckets do not fit one-shot), the planner's chunks against
    twice as many; with float32 coefficients the pair must agree (first cost
    rtol 1e-4, trajectory rtol 2e-2), with the production bfloat16 ones the
    difference is printed;
-10. holds the bicubic and depth-probe kernels against their plain versions
+11. holds the bicubic and depth-probe kernels against their plain versions
     on the sampler inputs of the finest bucketed level's first call.
 
 Then:
-11. holds the distance-transform kernel (several sweeps fused per launch)
+12. holds the distance-transform kernel (several sweeps fused per launch)
     against its plain version bit for bit on the path's window and on a
     411x211x501 field (the Lion dataset's crop volume at 4 mm), with its
     sweeps per launch, launches per call and share of its bound, and the
     masked sampler's forward and backward (on no path) on the sampler
     inputs of step 1;
-12. checks a small fusion problem and a small refinement (the JAX
-    package's end-to-end scene) on the card against the CPU path.
+13. checks a small fusion problem and a small refinement (the JAX
+    package's end-to-end scene) on the card against the CPU path;
+14. runs the benchmark twins through their `main`, each printing its JSON
+    line: `intrinsic3d_torch.bench` at its defaults (its active E_g count
+    must equal step 5's) and `intrinsic3d_torch.bench_pipeline --modes auto
+    --repeats 1` (its refined mesh within half a finest voxel of the sphere,
+    0.5 mm rms, and its phases not empty).
 
-Prints the card (`nvidia-smi` name and power limit), one line per phase, a
-JSON `{"kernels": [...]}` line, and as the last line
+Prints the card (`nvidia-smi` name and power limit), one line per phase,
+the twins' JSON lines, a JSON `{"kernels": [...]}` line, and as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and when no
 CUDA device is available. Imports nothing of JAX.
 """
@@ -1066,6 +1092,216 @@ def apps_phase() -> dict:
     return dict(launches=launches)
 
 
+def _within(name: str, got, want, rtol: float, atol: float = 0.0) -> float:
+    """Fail unless |got − want| ≤ atol + rtol·|want| elementwise; returns
+    the largest |got − want|."""
+    import torch
+
+    got, want = torch.as_tensor(got, dtype=torch.float64), torch.as_tensor(want, dtype=torch.float64)
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.abs()).any()):
+        fail(f"flat: {name} differs (max |d| {float(err.max()):.3e}, rtol {rtol}, atol {atol})")
+    return float(err.max())
+
+
+def float64_gradients(asm, basm, params, bparams, table) -> dict:
+    """The flat and block gradients of the cost in float64 on the card:
+    both problems cast, the sampler swapped for its plain version (the
+    kernel takes float32), whose value carries the same derivatives as the
+    kernel's autograd function. Returns {leaf: (flat, block)}, the block
+    voxel leaves in table order."""
+    import torch
+
+    from intrinsic3d_torch.ops import bicubic
+    from intrinsic3d_torch.refine import blockform, residuals
+
+    def plain_rows(images, fid, x, y, active):
+        val, ddx, ddy = bicubic.bicubic_rows_plain(images, fid, x.detach(), y.detach(), active)
+        return val + ddx * (x - x.detach()) + ddy * (y - y.detach())
+
+    def cast(tup):
+        return type(tup)(*(v.to(torch.float64) if torch.is_tensor(v) and v.is_floating_point() else v for v in tup))
+
+    def grad(fn, p):
+        leaves = [v.detach().requires_grad_(True) for v in cast(p)]
+        return torch.autograd.grad(fn(residuals.Params(*leaves)), leaves)
+
+    a, b = cast(asm), cast(basm)
+    orig, residuals.bicubic_rows = residuals.bicubic_rows, plain_rows
+    try:
+        g_t = grad(lambda p: residuals.total_cost(p, a), params)
+        g_b = grad(lambda p: 0.5 * torch.sum(blockform.block_all_residuals(p, b, masked=False) ** 2), bparams)
+    finally:
+        residuals.bicubic_rows = orig
+    out = {}
+    for i, name in enumerate(residuals.Params._fields):
+        out[name] = (g_t[i], table(g_b[i]) if name in ("sdf", "albedo") else g_b[i])
+    return out
+
+
+def flat_phase(prob, level, n_block_active: int) -> dict:
+    """The flat-table oracle on the bench-scale problem on the card (the
+    module docstring's step 5). Returns the flat outer step's launches,
+    the step times, the flat active count and the kernel checks on the
+    flat path's inputs."""
+    import dataclasses
+
+    import torch
+
+    from intrinsic3d_torch import observations
+    from intrinsic3d_torch.ops import build
+    from intrinsic3d_torch.refine import blockform, residuals
+    from intrinsic3d_torch.refine.optimizer import optimize_level
+    from intrinsic3d_torch.refine.residuals import Params, total_cost
+    from intrinsic3d_torch.refine.solver import gn_iteration
+    from intrinsic3d_torch.synthetic import build_sphere_problem
+
+    gn = dict(lm_steps=3, cg_iters=6)
+    dev = prob.images.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def flat_outer():
+        t0 = time.perf_counter()
+        asm, masks = prob.assemble()
+        sync()
+        t1 = time.perf_counter()
+        out = gn_iteration(prob.params, asm, masks, 1e-4, **gn, device=dev)
+        sync()
+        return asm, masks, out, t1 - t0, time.perf_counter() - t1
+
+    # warm-up: the first autograd graphs of this path on the card, recording
+    # the first inputs the flat path hands each kernel (the assembly's depth
+    # probe and creation-time residual probe)
+    captured = {}
+    restore = [capture_first_call(residuals, "bicubic_rows", captured),
+               capture_first_call(observations, "nearest_rows", captured)]
+    try:
+        flat_outer()
+    finally:
+        for r in restore:
+            r()
+    if set(captured) != {"bicubic_rows", "nearest_rows"}:
+        fail(f"flat: the warm-up did not reach every kernel: {sorted(captured)}")
+    build.reset_launches()
+    asm, masks, (p_t, c0_t, c1_t, _, tries_t), asm_s, flat_gn_s = flat_outer()
+    launches = dict(build.LAUNCHES)
+    n_flat = int((asm.eg_w > 0).sum())
+    log(f"  flat assembly: {asm.eg_w.shape[0]} elements, {n_flat} active (block assembly: {n_block_active} active "
+        f"of {level.layout.num_blocks * 512 * prob.images.shape[0]} dense elements)")
+    checks = check_kernels(captured)
+    del captured
+
+    bparams, basm, bmasks = blockform.to_block_problem(
+        level.layout, prob.topo.coords, asm, masks, prob.params, device=dev
+    )
+    table = lambda f: blockform.dense_to_table(level.layout, f)  # noqa: E731
+
+    def cost_grad(fn, params):
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        cost = fn(Params(*leaves))
+        return float(cost.detach()), Params(*torch.autograd.grad(cost, leaves))
+
+    c_t, g_t = cost_grad(lambda p: total_cost(p, asm), prob.params)
+    c_b, g_b = cost_grad(lambda p: 0.5 * torch.sum(blockform.block_all_residuals(p, basm, masked=False) ** 2), bparams)
+    _within("cost", c_b, c_t, 1e-4)
+    # gradients: rtol 2e-4 with an absolute floor of 2e-4 × the leaf's
+    # largest magnitude (at least 1e-6). A voxel's gradient sums many
+    # elements' terms, and on the card both sums are atomic scatter-adds in
+    # different orders, so an element near 0 by cancellation sits in the
+    # float32 rounding of its terms. The float64 reading below shows the two
+    # paths compute the same gradient and how far each float32 one strays
+    g64 = float64_gradients(asm, basm, prob.params, bparams, table)
+    grads = []
+    for name, got, want in (("sdf", table(g_b.sdf), g_t.sdf), ("albedo", table(g_b.albedo), g_t.albedo),
+                            ("poses", g_b.poses, g_t.poses), ("intr", g_b.intr, g_t.intr),
+                            ("dist", g_b.dist, g_t.dist)):
+        floor = max(1e-6, 2e-4 * float(want.abs().max()))
+        t64, b64 = g64[name]
+        scale = max(float(t64.abs().max()), 1e-30)
+        gap64 = _within(f"float64 gradient {name}", b64, t64, 0.0, 1e-9 * scale)
+        err_t = float((want.double() - t64).abs().max())
+        err_b = float((got.double() - b64).abs().max())
+        grads.append(f"{name} {_within(f'gradient {name}', got, want, 2e-4, floor):.3e} (floor {floor:.3e}; "
+                     f"float64 gap {gap64:.3e} at max |g| {scale:.4g}; float32 from float64: flat {err_t:.3e}, "
+                     f"block {err_b:.3e})")
+    del g64
+    log(f"  flat against block: cost {c_t:.6f} / {c_b:.6f}, gradients max |d|: {'; '.join(grads)}")
+
+    def block_gn():
+        t0 = time.perf_counter()
+        out = gn_iteration(bparams, basm, bmasks, 1e-4, **gn, cg_coeff_dtype="float32", device=dev)
+        sync()
+        return out, time.perf_counter() - t0
+
+    block_gn()
+    (p_b, c0_b, c1_b, _, tries_b), block_gn_s = block_gn()
+    c0_t, c1_t, c0_b, c1_b = float(c0_t), float(c1_t), float(c0_b), float(c1_b)
+    if c1_t > c0_t or c1_b > c0_b:
+        fail(f"flat: an accepted cost rose (flat {c0_t} -> {c1_t}, block {c0_b} -> {c1_b})")
+    _within("gn cost before", c0_b, c0_t, 1e-4)
+    _within("gn cost after", c1_b, c1_t, 1e-3)
+    step_err = max(_within("gn sdf", table(p_b.sdf), p_t.sdf, 5e-3, 5e-6),
+                   _within("gn poses", p_b.poses, p_t.poses, 5e-3, 5e-6))
+
+    # the block outer step at the same solver settings (device assembly + step)
+    solver = dict(gn, cg_coeff_dtype="float32")
+    mu = torch.tensor(1e-4, device=dev)
+    level.outer_step(level.params, prob.depths, prob.images, mu, **solver)
+    sync()
+    t0 = time.perf_counter()
+    level.outer_step(level.params, prob.depths, prob.images, mu, **solver)
+    sync()
+    block_outer_s = time.perf_counter() - t0
+    log(f"  flat gn_iteration: cost {c0_t:.6f} -> {c1_t:.6f} tries {tries_t}; block (float32): {c0_b:.6f} -> "
+        f"{c1_b:.6f} tries {tries_b}; params max |d| {step_err:.3e}")
+    log(f"  flat outer step {asm_s + flat_gn_s:.4f}s (assembly {asm_s:.4f}s + step {flat_gn_s:.4f}s); block step on "
+        f"the re-laid problem {block_gn_s:.4f}s; block outer step {block_outer_s:.4f}s (3 LM tries, 6 CG steps, "
+        f"float32); launches {launches}")
+
+    small = build_sphere_problem(
+        voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2, perturb_sdf=0.002,
+        perturb_albedo=0.05, device=dev,
+    )
+    cfg = dataclasses.replace(small.cfg, iterations=3)
+    _, _, st = optimize_level(small.grid, small.topo, small.params, cfg, small.cam, small.depths, small.images,
+                              small.voxel_sh, small.thres_shell, 0, use_blocks=False, device=dev)
+    log(f"  flat optimize_level (small sphere, 3 iterations): costs {st.costs_before} -> {st.costs_after}, "
+        f"tries {st.tries}, {st.elements} elements")
+    if len(st.costs_after) != 3 or any(c1 > c0 for c0, c1 in zip(st.costs_before, st.costs_after)):
+        fail(f"flat optimize_level: an accepted cost rose ({st.costs_before} -> {st.costs_after})")
+    return dict(launches=launches, n_active=n_flat, asm_s=asm_s, flat_gn_s=flat_gn_s, block_gn_s=block_gn_s,
+                block_outer_s=block_outer_s, checks=checks)
+
+
+def bench_phase(n_flat_active: int) -> None:
+    """The benchmark twins through their `main` (the module docstring's step
+    14); each prints its JSON line."""
+    import torch
+
+    from intrinsic3d_torch import bench, bench_pipeline
+
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    line = bench.main([])
+    log(f"  bench twin: {time.perf_counter() - t0:.1f}s")
+    d = line["detail"]
+    if not (line["value"] > 0.0 and d["device"] == name):
+        fail(f"bench twin: {line}")
+    if d["active_eg_residuals"] != n_flat_active:
+        fail(f"bench twin: {d['active_eg_residuals']} active E_g residuals, the flat phase counted {n_flat_active}")
+    t0 = time.perf_counter()
+    line = bench_pipeline.main(["--modes", "auto", "--repeats", "1"])
+    log(f"  bench_pipeline twin: {time.perf_counter() - t0:.1f}s")
+    d = line["detail"]
+    if d["device"] != name or not all(run["phases_s"] for run in d["runs"]):
+        fail(f"bench_pipeline twin: no phases recorded or wrong device ({d['device']})")
+    if not d["refined_mesh_err_rms_m"] <= 0.5e-3:
+        fail(f"bench_pipeline twin: refined mesh {d['refined_mesh_err_rms_m']} m rms from the sphere (bar 0.5 mm)")
+
+
 def small_refinement_agrees() -> None:
     """The end-to-end test's scene (5 frames at 96x72, 2 grid and 2 pyramid
     levels) refined from one fused grid on the card and through the plain CPU
@@ -1214,6 +1450,15 @@ def main() -> int:
     # --- phase 3: the result on a small problem against the plain CPU path
     small_problem_agrees()
     log("phase check: the card's trajectory matches the plain CPU path")
+
+    # --- phase 3b: the flat-table oracle on the same problem; counts zeroed
+    # just before its outer step and read just after
+    flat = flat_phase(prob, level, n_active)
+    by_name = {r["name"]: r for r in records}
+    for rec in flat.pop("checks"):
+        by_name[rec.pop("name")]["flat"] = {k: v for k, v in rec.items() if k not in ("route", "source", "replaces")}
+    log("phase flat: the flat-table path ran through the kernels, which agree with their plain versions on its "
+        "inputs, and matches the block path")
     del prob, level, p
 
     # --- phase 4: keyframes and fusion at bench_pipeline scale; counts zeroed
@@ -1248,7 +1493,6 @@ def main() -> int:
         r["launches_many_keyframe_refinement"] = many["launches"][r["name"]]
     log("phase check: the many-keyframe refinement ran bucketed and streamed levels through the kernels, "
         "met its bars, and its streamed runs tracked the one-shot and planned runs")
-    by_name = {r["name"]: r for r in records}
     for rec in check_kernels(many["captured"]):
         by_name[rec.pop("name")]["many_keyframe"] = {
             k: v for k, v in rec.items() if k not in ("route", "source", "replaces")}
@@ -1280,6 +1524,14 @@ def main() -> int:
     small_refinement_agrees()
     log("phase check: the card's refinement matches the plain CPU path")
 
+    # --- phase 10: the benchmark twins, each printing its JSON line
+    bench_phase(flat["n_active"])
+    log("phase bench: both benchmark twins ran and met their bars")
+
+    for r in records:
+        r["launches_flat"] = flat["launches"][r["name"]]
+        if r["name"] in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows") and r["launches_flat"] == 0:
+            fail(f"kernel {r['name']} was never launched on the flat path")
     if len(records) != 6:
         fail(f"{len(records)} kernel records, expected 6")
     kernels = {"kernels": records}

@@ -123,3 +123,22 @@ def project(cam: Camera, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
         & (v <= cam.height - 1)
     )
     return uv, valid
+
+
+def project_simple(cam: Camera, pts: torch.Tensor) -> torch.Tensor:
+    """Undistorted projection (``Camera::project2``, ``camera.cpp:157-162``):
+    camera-frame points `[..., 3]` → `[..., 3]` = (u, v, z)."""
+    z = pts[..., 2]
+    zsafe = torch.where(z == 0.0, torch.full_like(z, 1e-12), z)
+    u = pts[..., 0] * cam.fx / zsafe + cam.cx
+    v = pts[..., 1] * cam.fy / zsafe + cam.cy
+    return torch.stack([u, v, z], dim=-1)
+
+
+def unproject(cam: Camera, u: torch.Tensor, v: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Back-project pixels at the given depth (``Camera::unproject2``,
+    ``camera.cpp:192-199``); zero depth gives the zero point."""
+    x = (u - cam.cx) / cam.fx
+    y = (v - cam.cy) / cam.fy
+    pts = torch.stack([x * depth, y * depth, depth], dim=-1)
+    return torch.where(depth.unsqueeze(-1) > 0.0, pts, torch.zeros_like(pts))

@@ -14,7 +14,7 @@ from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid, pack_coords
 from intrinsic3d_torch.refine.blockform import BlockAssembly, layout_plans
-from intrinsic3d_torch.refine.residuals import Params
+from intrinsic3d_torch.refine.residuals import Assembly, Params
 from intrinsic3d_torch.refine.solver import Masks
 
 
@@ -73,4 +73,35 @@ def block_assembly_from_numpy(
         pyr_scale=_t(pyr_scale, device),
         voxel_size=_t(voxel_size, device),
         bmap=None if bmap is None else _t(bmap, device, torch.int64),
+    )
+
+
+def assembly_from_numpy(
+    eg_sdf10_idx, eg_alb4_idx, eg_frame, eg_w, eg_sh, eg_vpos, er_idx, er_w, es_idx, es_ref, es_w, ea_pairs, ea_w,
+    lam, images, pyr_scale, voxel_size, eg_onehot=None, device="cuda",
+) -> Assembly:
+    """Port flat-table `Assembly` from the fields of a JAX `Assembly`
+    (`Assembly(**{k: np.asarray(v) ...})`-style keywords). The JAX
+    `eg_onehot` (a TPU contraction of the pose gather) is accepted and
+    dropped; index fields become int64."""
+    del eg_onehot
+    i64 = torch.int64
+    return Assembly(
+        eg_sdf10_idx=_t(eg_sdf10_idx, device, i64),
+        eg_alb4_idx=_t(eg_alb4_idx, device, i64),
+        eg_frame=_t(eg_frame, device, i64),
+        eg_w=_t(eg_w, device),
+        eg_sh=_t(eg_sh, device),
+        eg_vpos=_t(eg_vpos, device, torch.int32),
+        er_idx=_t(er_idx, device, i64),
+        er_w=_t(er_w, device),
+        es_idx=_t(es_idx, device, i64),
+        es_ref=_t(es_ref, device),
+        es_w=_t(es_w, device),
+        ea_pairs=_t(ea_pairs, device, i64),
+        ea_w=_t(ea_w, device),
+        lam=_t(lam, device),
+        images=_t(images, device),
+        pyr_scale=_t(pyr_scale, device),
+        voxel_size=_t(voxel_size, device),
     )

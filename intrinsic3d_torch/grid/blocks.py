@@ -82,6 +82,23 @@ class BlockLayout:
 
         return cls(block=B, block_coords=block_coords, vox_slot=vox_slot, nbr27=nbr27)
 
+    def slots_of(self, coords: np.ndarray) -> np.ndarray:
+        """Flat slot index into `[nb * B³]` (int64) for voxel coords
+        `[..., 3]`, −1 where the owning block is not in the layout."""
+        B = self.block
+        shape = coords.shape[:-1]
+        c = np.asarray(coords, np.int64).reshape(-1, 3)
+        bc = np.floor_divide(c, B)
+        keys = pack_coords(bc)
+        block_keys = pack_coords(self.block_coords)  # sorted: the build's order
+        pos = np.searchsorted(block_keys, keys)
+        pos_c = np.clip(pos, 0, self.num_blocks - 1)
+        hit = (pos < self.num_blocks) & (block_keys[pos_c] == keys)
+        lc = c - bc * B
+        slot = (lc[:, 0] * B + lc[:, 1]) * B + lc[:, 2]
+        out = np.where(hit, pos_c * (B**3) + slot, -1)
+        return out.reshape(shape).astype(np.int64)
+
 
 @dataclasses.dataclass
 class ShiftPlan:

@@ -61,6 +61,11 @@ def laplacian(sdf: torch.Tensor, ring6_idx: torch.Tensor) -> torch.Tensor:
     return torch.sum(s6, dim=-1) - 6.0 * sdf
 
 
+def voxel_to_world(coords: torch.Tensor, voxel_size) -> torch.Tensor:
+    """Integer voxel coords `[..., 3]` → float32 world positions."""
+    return coords.to(torch.float32) * voxel_size
+
+
 def voxel_center_to_iso(world_pts: torch.Tensor, normals: torch.Tensor, sdf: torch.Tensor) -> torch.Tensor:
     """Project voxel centers onto the iso-surface: `p − n·sdf`
     (``operators.cpp:46-56``)."""

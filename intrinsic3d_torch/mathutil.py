@@ -116,3 +116,33 @@ def invert_pose(T) -> np.ndarray:
     out[:3, :3] = R.T
     out[:3, 3] = -R.T @ t
     return out
+
+
+# offsets in the reference's corner order (``math.cpp:103-128``)
+TRILINEAR_OFFSETS = np.array(
+    [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [0, 1, 1], [1, 0, 1], [1, 1, 1]], dtype=np.int32
+)
+
+
+def interpolation_weights(pos: torch.Tensor):
+    """8-corner trilinear weights of continuous grid positions `pos [..., 3]`:
+    (corners `[..., 8, 3]` int32, weights `[..., 8]`) in the reference's
+    corner order (``math.cpp:103-128``)."""
+    v0 = torch.floor(pos)
+    frac = pos - v0
+    offs = torch.as_tensor(TRILINEAR_OFFSETS, device=pos.device)
+    corners = v0.unsqueeze(-2).to(torch.int32) + offs
+    w = torch.where(offs == 1, frac.unsqueeze(-2), 1.0 - frac.unsqueeze(-2))
+    return corners, torch.prod(w, dim=-1)
+
+
+def within_bounds(bounds, pos: torch.Tensor) -> torch.Tensor:
+    """AABB test for `bounds = (x0, x1, y0, y1, z0, z1)` (``math.cpp:50-71``)."""
+    return (
+        (pos[..., 0] >= bounds[0])
+        & (pos[..., 0] <= bounds[1])
+        & (pos[..., 1] >= bounds[2])
+        & (pos[..., 1] <= bounds[3])
+        & (pos[..., 2] >= bounds[4])
+        & (pos[..., 2] <= bounds[5])
+    )

@@ -25,7 +25,9 @@ over the coefficient fields plus shift-plan gathers.
 `linearize_block_chunked` and `block_total_cost` stream that reverse pass
 and the LM acceptance forward over frame chunks, so only the compact
 coefficient fields persist while the transients are bounded at one chunk's
-frames. The flat-table bridge `to_block_problem` is not ported.
+frames. `to_block_problem` re-lays a flat-table problem
+(`refine.assembly.build_assembly`) into this form, the equivalence bridge of
+the tests and of `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -36,11 +38,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from intrinsic3d_torch.device import resolve_device
+from intrinsic3d_torch.device import check_on, resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout, ShiftPlan, build_shift_plan, pad_flat
 from intrinsic3d_torch.grid.voxel_grid import EG_ALBEDO_OFFSETS, EG_SDF_OFFSETS
 from intrinsic3d_torch.mathutil import pose_vec_to_matrix
-from intrinsic3d_torch.refine.residuals import Params, eg_core
+from intrinsic3d_torch.refine.residuals import Assembly, Params, eg_core
 
 log = logging.getLogger("intrinsic3d")
 
@@ -612,6 +614,121 @@ def layout_plans(layout: BlockLayout, device="cuda") -> Tuple[ShiftPlan, ShiftPl
             build_shift_plan(layout, ALB_OFFSETS, dev),
         )
     return cache[key]
+
+
+def to_block_problem(
+    layout: BlockLayout,
+    coords: np.ndarray,
+    asm: Assembly,
+    masks,
+    params: Params,
+    bucket: bool = False,
+    device="cuda",
+) -> Tuple[Params, BlockAssembly, object]:
+    """Re-lay a flat-table problem (`refine.assembly.build_assembly`, table
+    voxel `coords [N, 3]`) into the block-dense form on `device`: same
+    energy, same free parameters (host numpy, as in the JAX package). Returns
+    (block params, `BlockAssembly`, block masks), the voxel fields padded to
+    `[nb+1, B³]`.
+
+    The dense layout is frame-major, so each active element lands at its
+    (frame, slot): a voxel observes a keyframe at most once, so no two
+    collide (the JAX function's `num_obs` argument is therefore not taken).
+    `bucket=True` emits the frame-bucketed layout instead, its per-frame
+    block lists built exactly from the active elements (width rounded up to
+    a multiple of 8, at least 8). Raises if an active element's voxel is
+    outside `layout`."""
+    dev = resolve_device(device)
+    check_on(dev, eg_w=asm.eg_w, sdf=params.sdf, mask=masks.sdf)
+    s = layout.block**3
+    nb = layout.num_blocks
+    d = nb * s
+    coords = np.asarray(coords)
+
+    eg_slot = layout.slots_of(asm.eg_vpos.cpu().numpy())
+    eg_w_np = asm.eg_w.cpu().numpy()
+    active = eg_w_np > 0.0
+    if np.any(eg_slot[active] < 0):
+        raise ValueError("active E_g element references a voxel outside the block layout")
+    eg_slot = np.where(eg_slot >= 0, eg_slot, 0).astype(np.int64)
+    o_cap = int(asm.images.shape[0])
+    frames = asm.eg_frame.cpu().numpy().astype(np.int64)
+
+    bmap = None
+    if bucket:
+        blk = eg_slot // s
+        bks = [np.unique(blk[active & (frames == k)]) for k in range(o_cap)]
+        nbc = max((len(bk) for bk in bks), default=1)
+        nbc = max(8, -(-max(nbc, 1) // 8) * 8)
+        bmap = np.full((o_cap, nbc), nb, np.int64)
+        pos = np.full((o_cap, nb + 1), -1, np.int64)
+        for k, bk in enumerate(bks):
+            bmap[k, : len(bk)] = bk
+            pos[k, bk] = np.arange(len(bk))
+        af = frames[active]
+        didx = af * (nbc * s) + pos[af, blk[active]] * s + (eg_slot[active] % s)
+        eg_w = np.zeros((o_cap, nbc, s), np.float32)
+    else:
+        didx = frames[active] * d + eg_slot[active]
+        eg_w = np.zeros((o_cap, nb, s), np.float32)
+    eg_w.reshape(-1)[didx] = eg_w_np[active]
+
+    # per-voxel element data (the same for every observation of a voxel):
+    # scattered from the active elements; slots without one carry weight 0
+    eg_sh = np.zeros((9, d), np.float32)
+    eg_sh[:, eg_slot[active]] = asm.eg_sh.cpu().numpy()[active].T
+    eg_vpos = np.zeros((3, d), np.int32)
+    eg_vpos[:, layout.vox_slot] = coords.astype(np.int32).T
+
+    def densify(table_vals):
+        out = np.zeros(d, np.float32)
+        out[layout.vox_slot] = table_vals.cpu().numpy()
+        return out.reshape(nb, s)
+
+    # E_a pairs → three +axis direction weight fields
+    pairs = asm.ea_pairs.cpu().numpy()
+    ea_wt = asm.ea_w.cpu().numpy()
+    delta = coords[pairs[:, 1]] - coords[pairs[:, 0]]
+    slots_i = layout.vox_slot[pairs[:, 0]]
+    slots_j = layout.vox_slot[pairs[:, 1]]
+    ea_w = np.zeros((3, d), np.float32)
+    for dd in range(3):
+        e = np.zeros(3, np.int64)
+        e[dd] = 1
+        fwd = np.all(delta == e, axis=-1)
+        bwd = np.all(delta == -e, axis=-1)
+        ea_w[dd, slots_i[fwd]] = ea_wt[fwd]
+        ea_w[dd, slots_j[bwd]] = ea_wt[bwd]
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    sdf_plan, alb_plan = layout_plans(layout, dev)
+    basm = BlockAssembly(
+        eg_w=t(eg_w),
+        eg_sh=t(eg_sh),
+        eg_vpos=t(eg_vpos, torch.int32),
+        sdf_plan=sdf_plan,
+        alb_plan=alb_plan,
+        er_w=t(densify(asm.er_w)),
+        es_ref=t(densify(asm.es_ref)),
+        es_w=t(densify(asm.es_w)),
+        ea_w=t(ea_w.reshape(3, nb, s)),
+        lam=asm.lam,
+        images=asm.images,
+        pyr_scale=asm.pyr_scale,
+        voxel_size=asm.voxel_size,
+        bmap=None if bmap is None else t(bmap, torch.int64),
+    )
+    bparams = params._replace(sdf=table_to_dense(layout, params.sdf), albedo=table_to_dense(layout, params.albedo))
+    bmasks = type(masks)(
+        sdf=table_to_dense(layout, masks.sdf),
+        albedo=table_to_dense(layout, masks.albedo),
+        poses=masks.poses,
+        intr=masks.intr,
+        dist=masks.dist,
+    )
+    return bparams, basm, bmasks
 
 
 def params_from_block(layout: BlockLayout, bparams: Params) -> Params:

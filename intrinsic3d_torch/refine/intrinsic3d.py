@@ -38,6 +38,7 @@ from intrinsic3d_torch.observations import collect_observations, recolor
 from intrinsic3d_torch.refine.assembly import level_topology
 from intrinsic3d_torch.refine.optimizer import OptimizeStats, optimize_level
 from intrinsic3d_torch.refine.residuals import Params
+from intrinsic3d_torch.timer import record_phase
 
 log = logging.getLogger("intrinsic3d")
 
@@ -58,10 +59,15 @@ class Intrinsic3D:
     """End-to-end joint appearance and geometry refinement on `device`.
 
     `cg_coeff_dtype` and `cg_eta` pass through to every level's
-    `optimize_level` (the JAX driver runs their defaults). When `stats` is a
-    dict, the constructor and `refine` put the seconds of each phase in it
-    under the JAX package's phase names (plus `topology[g*]`, the level's
-    host stencil tables), synchronizing the device at every phase end."""
+    `optimize_level` (the JAX driver runs their defaults). The constructor
+    and `refine` time each phase once under the JAX package's phase names
+    (plus `topology[g*]`, the level's host stencil tables; the JAX program's
+    `first_dispatch` has no counterpart) and record it with
+    `timer.record_phase`, as the JAX driver does (`optimize_level` records
+    the levels' `level_setup` and `solve`). When `stats` is a dict they also
+    put each phase there under the same name, and then synchronize the
+    device at every phase end so the seconds are the device's; without it
+    the queue is left alone."""
 
     def __init__(
         self,
@@ -111,11 +117,14 @@ class Intrinsic3D:
         self.callbacks.append(cb)
 
     def _phase_end(self, stats: Optional[dict], name: str, t0: float) -> None:
-        if stats is None:
-            return
-        if self.device.type == "cuda":
+        """The phase's seconds into both sinks: `timer.record_phase` and,
+        when given, the `stats` dict (the device synchronized first)."""
+        if stats is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        stats[name] = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        record_phase(name, seconds)
+        if stats is not None:
+            stats[name] = seconds
 
     def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)

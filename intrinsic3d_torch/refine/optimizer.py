@@ -10,8 +10,12 @@ E_g element layout (dense, frame-bucketed, streamed over frame chunks, or
 frame-capped) by the JAX package's rules with the card's own memory
 constants, and a level whose first step runs out of device memory is
 replanned once at 60% of the budget. `prepare_level` builds one level's
-layout, statics and shift plans for a caller that steps it itself. The JAX
-package's background `LevelPrep` and the SPMD mesh path are not ported.
+layout, statics and shift plans for a caller that steps it itself.
+`optimize_level(use_blocks=False)` runs the flat-table oracle instead
+(`refine.assembly.build_assembly` + the flat `gn_iteration`). The level's
+setup and solve seconds go to `timer.record_phase` under the JAX package's
+names. The JAX package's background `LevelPrep` and the SPMD mesh path are
+not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout, ShiftPlan
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
 from intrinsic3d_torch.mathutil import compute_varying_lambda, pyramid_level_to_scale
-from intrinsic3d_torch.refine.assembly import LevelTopology, level_topology
+from intrinsic3d_torch.refine.assembly import LevelTopology, build_assembly, level_topology
 from intrinsic3d_torch.refine.blockform import (
     bucket_ladder_down,
     build_frame_buckets,
@@ -42,6 +46,7 @@ from intrinsic3d_torch.refine.blockform import (
 from intrinsic3d_torch.refine.device_assembly import LevelStatic, build_level_static, device_assembly
 from intrinsic3d_torch.refine.residuals import Params
 from intrinsic3d_torch.refine.solver import gn_iteration
+from intrinsic3d_torch.timer import record_phase
 
 log = logging.getLogger("intrinsic3d")
 
@@ -351,9 +356,10 @@ def prepare_level(
 class OptimizeStats:
     """Per-iteration record of one level (the JAX package's fields first),
     plus the level's plan and sizes (`bucket_blocks`: blocks per frame row
-    of a bucketed plan, 0 dense; `elements`: the E_g elements K·kb·B³), its
-    setup and iteration seconds (host clock; every iteration ends on a host
-    read of its costs) and, on the card, its peak allocated bytes."""
+    of a bucketed plan, 0 dense; `elements`: the E_g elements K·kb·B³, or
+    the flat table's last assembly's), its setup and iteration seconds (host
+    clock; every iteration ends on a host read of its costs) and, on the
+    card, its peak allocated bytes."""
 
     costs_before: list
     costs_after: list
@@ -385,6 +391,7 @@ def optimize_level(
     budget: Optional[float] = None,
     cg_coeff_dtype: str = "bfloat16",
     cg_eta: float = 0.1,
+    use_blocks: bool = True,
     device="cuda",
 ) -> Tuple[Params, float, OptimizeStats]:
     """Run `cfg.iterations` relinearized GN steps of one (grid, pyramid)
@@ -392,19 +399,26 @@ def optimize_level(
     damping (the next level's start, the reference's trust-region warm
     start) and the level's `OptimizeStats`.
 
-    The level runs on the block-dense layout with the per-iteration device
-    assembly; λ_r and λ_s follow `compute_varying_lambda` over the
-    iterations. `plan_eg_layout` decides the E_g element layout against
-    `budget` (default: `eg_hbm_budget(device)`). When the first outer step
-    runs out of device memory (`torch.cuda.OutOfMemoryError`), the failed
-    attempt's memory is released, the layout is replanned at 60% of that
-    budget and the step retried once, as the JAX package does; a second
-    out-of-memory error, one at a later iteration, or any other error
-    propagates, and no work moves to the CPU. `cg_coeff_dtype` and `cg_eta`
-    pass through to `gn_iteration` (the JAX level loop runs its defaults).
+    With `use_blocks` (the production path) the level runs on the
+    block-dense layout with the per-iteration device assembly; λ_r and λ_s
+    follow `compute_varying_lambda` over the iterations. `plan_eg_layout`
+    decides the E_g element layout against `budget` (default:
+    `eg_hbm_budget(device)`). When the first outer step runs out of device
+    memory (`torch.cuda.OutOfMemoryError`), the failed attempt's memory is
+    released, the layout is replanned at 60% of that budget and the step
+    retried once, as the JAX package does; a second out-of-memory error,
+    one at a later iteration, or any other error propagates, and no work
+    moves to the CPU. `cg_coeff_dtype` and `cg_eta` pass through to
+    `gn_iteration` (the JAX level loop runs its defaults).
+
+    `use_blocks=False` runs the flat-table oracle: every iteration rebuilds
+    `build_assembly` with the camera of the current intrinsics and
+    distortion and takes one flat `gn_iteration` (exact products, joint
+    PCG; `budget` and `cg_coeff_dtype` do not apply).
+
     On the card the peak-memory counter is reset at the start, so
     `peak_bytes` is this level's peak. `base_cam` is unused, as in the JAX
-    block path."""
+    package."""
     del base_cam
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -412,7 +426,62 @@ def optimize_level(
     pyr_scale = pyramid_level_to_scale(rgbd_level)
     h, w = int(depths_level.shape[1]), int(depths_level.shape[2])
     k = int(params.poses.shape[0])
+    tag = f"p{rgbd_level}v{grid.num_voxels}"
     stats = OptimizeStats([], [], [])
+
+    def lambdas_at(itr):
+        lambda_r = compute_varying_lambda(itr, cfg.iterations, cfg.lambda_r0, cfg.lambda_r1)
+        lambda_s = compute_varying_lambda(itr, cfg.iterations, cfg.lambda_s0, cfg.lambda_s1)
+        return lambda_r, lambda_s
+
+    def record_iteration(itr, t0, out):
+        _, cost0, cost1, mu, tries = out
+        stats.costs_before.append(float(cost0))
+        stats.costs_after.append(float(cost1))
+        stats.tries.append(int(tries))
+        stats.mus.append(float(mu))
+        stats.iter_seconds.append(time.perf_counter() - t0)
+        log.info(
+            "   iter %d: cost %.6e -> %.6e (lm tries %d, mu %.2e)",
+            itr, stats.costs_before[-1], stats.costs_after[-1], stats.tries[-1], stats.mus[-1],
+        )
+
+    def finish(mu):
+        record_phase(f"solve[{tag}]", sum(stats.iter_seconds))
+        if dev.type == "cuda":
+            stats.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+        return float(mu)
+
+    mu = torch.tensor(mu0, dtype=torch.float32, device=dev)
+    if not use_blocks:
+        t0 = time.perf_counter()
+        topo = level_topology(grid) if topo is None else topo
+        stats.reason = "flat table"
+        stats.setup_seconds = time.perf_counter() - t0
+        for itr in range(cfg.iterations):
+            t0 = time.perf_counter()
+            lambda_r, lambda_s = lambdas_at(itr)
+            # observations through the CURRENT intrinsics and distortion
+            intr = params.intr.detach().cpu().numpy()
+            cam_level = Camera.create(
+                intr[0] * pyr_scale, intr[1] * pyr_scale, intr[2] * pyr_scale, intr[3] * pyr_scale, w, h,
+                dist=params.dist.detach().cpu().numpy(),
+            )
+            asm, masks = build_assembly(
+                grid, topo, params, cam_level, depths_level, images_level, voxel_sh, thres_shell,
+                cfg.occlusion_distance, cfg.num_observations, cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a,
+                pyr_scale, cfg.fix_poses, cfg.fix_intrinsics, cfg.fix_distortion, min_pose_obs=cfg.min_pose_obs,
+                device=dev,
+            )
+            stats.elements = int(asm.eg_w.shape[0])
+            out = gn_iteration(
+                params, asm, masks, mu, cfg.lm_steps, cg_iters, schur_globals=cfg.schur_globals, cg_eta=cg_eta,
+                device=dev,
+            )
+            params, mu = out[0], out[3]
+            record_iteration(itr, t0, out)
+        return params, finish(mu), stats
+
     t0 = time.perf_counter()
     layout = BlockLayout.build(grid)
     if budget is None:
@@ -453,20 +522,20 @@ def optimize_level(
     record_plan(fb, reason, eg_chunks)
     stats.num_blocks = layout.num_blocks
     stats.setup_seconds = time.perf_counter() - t0
+    record_phase(f"level_setup[{tag}]", stats.setup_seconds)
     log.info(
         "   level setup: %.2fs (%d blocks, %d voxels, %d elements, %s)",
         stats.setup_seconds, layout.num_blocks, grid.num_voxels, stats.elements, reason,
     )
 
-    bparams, mu = level.params, torch.tensor(mu0, dtype=torch.float32, device=dev)
+    bparams = level.params
     solver = dict(
         lm_steps=cfg.lm_steps, cg_iters=cg_iters, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs,
         cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta,
     )
     for itr in range(cfg.iterations):
         t0 = time.perf_counter()
-        lambda_r = compute_varying_lambda(itr, cfg.iterations, cfg.lambda_r0, cfg.lambda_r1)
-        lambda_s = compute_varying_lambda(itr, cfg.iterations, cfg.lambda_s0, cfg.lambda_s1)
+        lambda_r, lambda_s = lambdas_at(itr)
         lambdas = torch.tensor([cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a], dtype=torch.float32, device=dev)
         out_of_memory = None
         try:
@@ -494,16 +563,6 @@ def optimize_level(
             record_plan(fb, reason, eg_chunks)
             level = level._replace(bmap=_bmap_on(fb, dev), eg_chunks=eg_chunks)
             out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
-        bparams, cost0, cost1, mu, tries = out
-        stats.costs_before.append(float(cost0))
-        stats.costs_after.append(float(cost1))
-        stats.tries.append(int(tries))
-        stats.mus.append(float(mu))
-        stats.iter_seconds.append(time.perf_counter() - t0)
-        log.info(
-            "   iter %d: cost %.6e -> %.6e (lm tries %d, mu %.2e)",
-            itr, stats.costs_before[-1], stats.costs_after[-1], stats.tries[-1], stats.mus[-1],
-        )
-    if dev.type == "cuda":
-        stats.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
-    return params_from_block(layout, bparams), float(mu), stats
+        bparams, mu = out[0], out[3]
+        record_iteration(itr, t0, out)
+    return params_from_block(layout, bparams), finish(mu), stats

@@ -4,8 +4,7 @@ problems, and the orbit capture of the pipeline benchmark.
 Counterpart of `intrinsic3d_tpu/synthetic.py` and of
 `bench_pipeline.py::build_dataset`: the host rendering is the same numpy
 code (the same `default_rng(seed)` draws give the same images), and the
-refinement problem's device fields are torch tensors. The flat-table oracle
-`SphereProblem.assemble` is not part of the port.
+refinement problem's device fields are torch tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from intrinsic3d_torch.device import resolve_device
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
 from intrinsic3d_torch.io.memory_sensor import MemorySensor
 from intrinsic3d_torch.mathutil import invert_pose, pose_matrix_to_vec
-from intrinsic3d_torch.refine.assembly import LevelTopology
+from intrinsic3d_torch.refine.assembly import LevelTopology, build_assembly
 from intrinsic3d_torch.refine.optimizer import LevelSetup, prepare_level
 from intrinsic3d_torch.refine.residuals import Params
 
@@ -142,6 +141,20 @@ class SphereProblem:
     images: torch.Tensor  # [K, H, W]
     voxel_sh: np.ndarray
     thres_shell: float
+
+    def assemble(self):
+        """The flat-table problem at the start point (`build_assembly` at
+        pyramid scale 1, on the device the tensors lie on, with λ_r = λ_s =
+        10 as `level()` and bench.py set them): (Assembly, Masks).
+        Observations are collected through the TRUE camera (`self.cam`), as
+        in the JAX package; the flat `optimize_level` collects them through
+        the current intrinsics and distortion."""
+        return build_assembly(
+            self.grid, self.topo, self.params, self.cam, self.depths, self.images, self.voxel_sh, self.thres_shell,
+            self.cfg.occlusion_distance, self.cfg.num_observations, self.cfg.lambda_g, 10.0, 10.0,
+            self.cfg.lambda_a, 1.0, self.cfg.fix_poses, self.cfg.fix_intrinsics, self.cfg.fix_distortion,
+            device=self.images.device,
+        )
 
     def level(self, lambdas=None) -> LevelSetup:
         """The problem as one refinement level (`refine.optimizer.prepare_level`)

@@ -538,7 +538,7 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "new = ['native', 'visualization', 'io.dataset', 'io.golden_dataset', 'io.ply', 'io.trajectory',\n"
         "       'io.tsdf_io', 'mesh.extract', 'mesh.marching_cubes', 'mesh.metrics', 'mesh.util',\n"
-        "       'apps.common', 'apps.app_intrinsic3d']\n"
+        "       'apps.common', 'apps.app_intrinsic3d', 'timer', 'bench', 'bench_pipeline']\n"
         "missing = [n for n in new if 'intrinsic3d_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "from intrinsic3d_torch.apps import app_fusion, app_intrinsic3d, app_keyframes\n"

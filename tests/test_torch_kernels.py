@@ -285,6 +285,41 @@ def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.cuda
+def test_flat_path_on_the_card_matches_the_cpu_path(cuda_device):
+    """The flat-table oracle on `test_blockform.py`'s small sphere: the
+    assembly (through the depth-probe and bicubic kernels), the Jacobi
+    diagonal and one GN step (3 LM tries, 6 CG steps) on the card against
+    the CPU path. Element sets equal, weights rtol 1e-5; diagonal rtol 1e-3
+    (atomic scatter-adds); costs rtol 1e-4 and equal tries."""
+    from intrinsic3d_torch.refine.solver import gn_iteration, jtj_diag
+    from intrinsic3d_torch.synthetic import build_sphere_problem
+
+    out = {}
+    build.reset_launches()
+    for dev in (cuda_device, torch.device("cpu")):
+        prob = build_sphere_problem(
+            voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2, perturb_sdf=0.002,
+            perturb_albedo=0.05, device=dev,
+        )
+        asm, masks = prob.assemble()
+        diag = jtj_diag(prob.params, asm)
+        _, c0, c1, _, tries = gn_iteration(prob.params, asm, masks, 1e-4, lm_steps=3, cg_iters=6, device=dev)
+        out[dev.type] = (asm, diag, float(c0), float(c1), tries)
+    launches = dict(build.LAUNCHES)
+    (ga, gd, g0, g1, gt), (ca, cd, c0, c1, ct) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(ga.eg_frame.cpu(), ca.eg_frame)
+    torch.testing.assert_close(ga.eg_sdf10_idx.cpu(), ca.eg_sdf10_idx)
+    torch.testing.assert_close(ga.eg_w.cpu(), ca.eg_w, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(ga.lam.cpu(), ca.lam, rtol=1e-5, atol=0.0)
+    for got, want in zip(gd, cd):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3 * float(want.abs().max()))
+    assert gt == ct
+    np.testing.assert_allclose([g0, g1], [c0, c1], rtol=1e-4)
+    assert g1 < g0
+    assert launches["nearest_rows"] > 0 and launches["bicubic_rows_fwd"] > 0 and launches["bicubic_rows_fwdgrad"] > 0
+
+
 def test_cpu_tensors_take_the_plain_versions():
     images, fid, x, y, active = (torch.as_tensor(a) for a in _rows_problem(23, k=2, h=24, w=32, m=2048))
     bicubic.reset_launches()

@@ -5,6 +5,7 @@ measurements behind the tolerances of `test_torch_apps.py` and
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py apps [--iterations 3] [--noise 1e-7 1e-6]
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py twins
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py blur
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py flat
 
 `apps` exports the golden scene (`GoldenSceneSpec()`, with `--iterations`
 outer iterations a level), runs the three JAX apps and the port's apps
@@ -21,8 +22,12 @@ through the port's block path, the JAX package's block path and the JAX
 test's flat path, and prints the differences between them (and the
 distortion run at 3 and 10). `blur` prints both packages' blur scores of
 the golden frames against a float64 evaluation, and the float32 sums
-behind their difference. `twins` takes ~20 minutes; `apps` ~4 minutes at
-3 iterations, plus ~3 a noise level; `blur` seconds.
+behind their difference. `flat` evaluates the port's flat-table and block
+gradients of the cost on `bench.py`'s problem in float32 and in float64
+(plain versions) and prints their differences and each float32 path's error
+against float64: the measurement behind `chip_smoke.py`'s gradient floor.
+`twins` takes ~20 minutes; `apps` ~4 minutes at 3 iterations, plus ~3 a
+noise level; `flat` ~30 s; `blur` seconds.
 
 Like the tests, this script imports both packages; it is not collected by
 pytest.
@@ -265,6 +270,44 @@ def report_blur() -> None:
         shutil.rmtree(base, ignore_errors=True)
 
 
+def report_flat() -> None:
+    from intrinsic3d_torch.refine import blockform
+    from intrinsic3d_torch.refine.residuals import Params, total_cost
+    from intrinsic3d_torch.synthetic import BENCH_PROBLEM, build_sphere_problem
+
+    prob = build_sphere_problem(**BENCH_PROBLEM, device="cpu")
+    layout = prob.level().layout
+    asm, masks = prob.assemble()
+    bparams, basm, _ = blockform.to_block_problem(layout, prob.topo.coords, asm, masks, prob.params, device="cpu")
+
+    def cast(tup, dtype):
+        return type(tup)(*(v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v for v in tup))
+
+    def cost_grad(fn, params):
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        cost = fn(Params(*leaves))
+        return float(cost.detach()), Params(*torch.autograd.grad(cost, leaves))
+
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        a, b = cast(asm, dtype), cast(basm, dtype)
+        c_t, g_t = cost_grad(lambda p: total_cost(p, a), cast(prob.params, dtype))
+        c_b, g_b = cost_grad(
+            lambda p: 0.5 * torch.sum(blockform.block_all_residuals(p, b, masked=False) ** 2), cast(bparams, dtype)
+        )
+        g_b = g_b._replace(sdf=blockform.dense_to_table(layout, g_b.sdf),
+                           albedo=blockform.dense_to_table(layout, g_b.albedo))
+        grads[dtype] = (g_t, g_b)
+        print(f"{dtype}: cost flat {c_t!r} block {c_b!r}")
+    (t32, b32), (t64, b64) = grads[torch.float32], grads[torch.float64]
+    for leaf in Params._fields:
+        g = lambda t: getattr(t, leaf).to(torch.float64)  # noqa: E731
+        print(f"  {leaf}: max |g| {float(g(t64).abs().max()):.6g}; flat - block: float32 "
+              f"{float((g(t32) - g(b32)).abs().max()):.3e}, float64 {float((g(t64) - g(b64)).abs().max()):.3e}; "
+              f"float32 - float64: flat {float((g(t32) - g(t64)).abs().max()):.3e}, "
+              f"block {float((g(b32) - g(b64)).abs().max()):.3e}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="what", required=True)
@@ -273,11 +316,14 @@ def main(argv=None) -> int:
     a.add_argument("--noise", type=float, nargs="*", default=[])
     sub.add_parser("twins")
     sub.add_parser("blur")
+    sub.add_parser("flat")
     args = p.parse_args(argv)
     if args.what == "apps":
         report_apps(args.iterations, args.noise)
     elif args.what == "twins":
         report_twins()
+    elif args.what == "flat":
+        report_flat()
     else:
         report_blur()
     return 0
