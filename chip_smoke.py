@@ -11,8 +11,10 @@ The refinement outer step:
    320x240, 8 keyframes, 142,256 voxels) as a warm-up, recording the inputs
    the path hands each kernel;
 2. holds every kernel of the path against its plain PyTorch version on those
-   inputs and times kernel, plain version and (where one exists) the one
-   PyTorch call computing the same function;
+   inputs and times kernel (in a CUDA graph, from Python, and one call at a
+   time with the L2 cache flushed before it, the time its bound is held
+   against), plain version and (where one exists) the one PyTorch call
+   computing the same function;
 3. zeroes the launch counters, drives 5 chained outer iterations through
    `refine.optimizer.fused_outer_step`, and reads the counters (every kernel
    of the path must have run);
@@ -60,6 +62,34 @@ tries, 12 CG steps):
    dense, no accepted cost rises, every field is finite, the voxel size
    ends at 1 mm, the bicubic and depth-probe kernels launched, and the
    refined SDF meets the analytic sphere's bar.
+
+The multi-device refinement (`intrinsic3d_torch.parallel`, ranks spawned
+by `parallel.dryrun.launch` after the kernels and the native library are
+built here, each rank failing the phase if it raises or outlives its
+timeout):
+7b. refines the same fused grid with `Intrinsic3D(mesh=)` on two ranks that
+   share the card over gloo, the counters zeroed in each rank just before
+   and read just after; prints per rank its brick rows and halo rows per
+   mesh shift, its peak memory, the seconds per outer iteration at the
+   finest level, its collectives (calls and seconds) and its K1a, K1b and
+   K2 launches, and per level its costs beside step 7's; then, on the same
+   ranks, runs 2 outer iterations of `optimize_level(mesh=)` (the outer
+   loop `Intrinsic3D(mesh=)` runs each level through) from each level's
+   recorded start in step 7. Fails unless the first level's first cost
+   (the same inputs as step 7's) and, from every level's recorded start,
+   the first cost and the cost after the first sharded GN step are within
+   rtol 1e-3 of step 7's, no accepted cost rises,
+   the refined SDF meets step 7's bar, every per-voxel field a rank held is
+   about half of it, and each rank launched K1a, K1b and K2; rank 0 holds
+   K1a, K1b and K2 against their plain versions on its first inputs (the
+   `multidevice` sub-record). The later levels of the two runs start where
+   each run's own trajectory ended; how far rounding moves that is printed
+   from step 7 run again with 1e-7 colour noise (not gated);
+7c. runs the dry run `python -m intrinsic3d_torch.parallel.dryrun` at 4
+   ranks over gloo on the card (the small problems of the JAX dry run, more
+   than one mesh shift), each phase against the single-device port;
+7d. runs `optimize_level(mesh=)` on one rank over NCCL against
+   `mesh=None` on the small problem (costs rtol 1e-4, then 1e-3).
 
 The three command-line apps (`GoldenSceneSpec.full_scale()`: 30 frames at
 640x480 on disk, 4 mm -> 1 mm over 3 grid and 3 RGB-D levels, 10
@@ -113,7 +143,8 @@ Then:
 
 Prints the card (`nvidia-smi` name and power limit), one line per phase,
 the twins' JSON lines, a JSON `{"kernels": [...]}` line, and as the last line
-`{"ok": true, "device": {...}}`. Exits non-zero on any failure, and when no
+`{"ok": true, "device": {...}}`; every line it prints is also kept in
+chiprun_out/chip_smoke.log. Exits non-zero on any failure, and when no
 CUDA device is available. Imports nothing of JAX.
 """
 
@@ -128,6 +159,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+LOG = REPO / "chiprun_out" / "chip_smoke.log"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the float32
 # rate outside the tensor cores
@@ -158,7 +190,13 @@ CHAINED_ITERS = 5
 
 
 def log(*a):
-    print(*a, flush=True)
+    """Print a line, and append it to chiprun_out/chip_smoke.log (the whole
+    run's lines, of which the card tool returns only the last ones)."""
+    text = " ".join(str(x) for x in a)
+    print(text, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with open(LOG, "a") as f:
+        f.write(text + "\n")
 
 
 def fail(msg: str) -> None:
@@ -180,6 +218,29 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median ms of one call of `fn` with the L2 cache flushed before it (a
+    256 MB buffer, five times the H100's 50 MB L2, written between calls):
+    the time against HBM of inputs that back-to-back calls would find in
+    L2. The flush is queued ahead of each call, so the launch gap hides
+    behind it."""
+    import torch
+
+    flush = torch.empty(2**26, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -267,16 +328,17 @@ def check_kernels(captured: dict) -> list:
         abs_err, rel = errs(pairs)
         with_grad = tag == "fwdgrad"
         kernel = lambda: bicubic._launch_bicubic(images, fid, x, y, active, with_grad)  # noqa: E731
-        ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
+        ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
         plain_ms = graph_ms(lambda: bicubic.bicubic_rows_plain(images, fid, x, y, active))
         b_ms, b_by = bound(needed_bytes(images, m, n_act, 12 if with_grad else 4), n_act * BICUBIC_OPS[tag])
         log(f"  bicubic_rows_{tag}: M={m} active={n_act} max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
-            f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            f"ms={ms:.4f} call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
         records.append(dict(
             name=f"bicubic_rows_{tag}", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
             replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:" + ("490" if with_grad else "473"),
-            elements=m, active=n_act, max_abs_err=abs_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None,
+            elements=m, active=n_act, max_abs_err=abs_err, ms=ms, call_ms=call_ms, cold_ms=l2_cold_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
 
     depths, fid, yi, xi, active = captured["nearest_rows"]
@@ -292,17 +354,18 @@ def check_kernels(captured: dict) -> list:
     if not torch.equal(lib(), want):
         fail("nearest_rows yardstick differs")
     kernel = lambda: bicubic._launch_nearest(depths, fid, yi, xi, active)  # noqa: E731
-    ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
+    ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
     plain_ms = graph_ms(lambda: bicubic.nearest_rows_plain(depths, fid, yi, xi, active))
     library_ms = graph_ms(lib)
     b_ms, b_by = bound(needed_bytes(depths, m, n_act, 4), 0)
     log(f"  nearest_rows: M={m} active={n_act} max_abs_err=0 ms={ms:.4f} "
-        f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
     records.append(dict(
         name="nearest_rows", route="cuda", source="intrinsic3d_torch/csrc/nearest_rows.cu",
         replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:690", elements=m, active=n_act, max_abs_err=0.0, ms=ms,
-        call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        call_ms=call_ms, cold_ms=l2_cold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms,
     ))
     return records
 
@@ -376,16 +439,17 @@ def check_sampler_sample(rows_inputs) -> list:
                 return torch.autograd.grad(bicubic.bicubic_sample_plain(images, fid, xq, yq, active), (xq, yq), g)
 
             nbytes = needed_bytes(images, m, n_act, 8, act_in_bytes=16)
-        ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
+        ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
         plain_ms = cuda_ms(plain)
         b_ms, b_by = bound(nbytes, n_act * BICUBIC_OPS[tag])
         log(f"  bicubic_sample_{tag}: M={m} active={n_act} max_abs_err={abs_err:.3e} ms={ms:.4f} "
-            f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); on no path")
+            f"call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
+            f"on no path")
         records.append(dict(
             name=f"bicubic_sample_{tag}", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
             replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:" + ("189" if tag == "fwd" else "214"),
-            max_abs_err=abs_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, on_path=False,
+            max_abs_err=abs_err, ms=ms, call_ms=call_ms, cold_ms=l2_cold_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, on_path=False,
         ))
     return records
 
@@ -440,7 +504,7 @@ def check_distance_transform(window_inputs) -> dict:
         n_valid = int((w_in > 0).sum())
         kernel = lambda: dt._run_plan(s_in, w_in, vs, plan)  # noqa: E731
         reps = 20 if tag == "window" else 5
-        ms, call_ms = graph_ms(kernel, reps), cuda_ms(kernel, reps)
+        ms, call_ms, l2_cold_ms = graph_ms(kernel, reps), cuda_ms(kernel, reps), cold_ms(kernel, reps)
         plain_ms = cuda_ms(lambda: dt.correct_sdf_dense_plain(s_in, w_in, vs, iters), 3)
         b_ms, b_by = bound(16 * n, iters * 26 * DT_OPS_PER_NEIGHBOUR * n_valid)
         log(f"  correct_sdf_dense ({tag}): dims={tuple(s_in.shape)} voxels={n} valid={n_valid} "
@@ -448,9 +512,11 @@ def check_distance_transform(window_inputs) -> dict:
             f"plan: sweeps_per_launch={list(plan.sweeps)} tile={plan.tile_y}x{plan.tile_z(plan.sweeps[0])}x{plan.seg} "
             f"cols={plan.cols} threads={plan.threads(plan.sweeps[0])} "
             f"blocks={plan.blocks(s_in.shape)}; max_abs_err={err:.3e} ms={ms:.4f} call_ms={call_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) pct_of_bound={100 * b_ms / ms:.1f}")
-        out[tag] = dict(dims=list(s_in.shape), max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / ms, launches_per_call=launches)
+            f"cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"pct_of_bound={100 * b_ms / l2_cold_ms:.1f} (of the L2-flushed time)")
+        out[tag] = dict(dims=list(s_in.shape), max_abs_err=err, ms=ms, call_ms=call_ms, cold_ms=l2_cold_ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / l2_cold_ms,
+                        launches_per_call=launches)
         del got_s, got_w, want_s, want_w
     rec = dict(name="correct_sdf_dense", route="cuda", source="intrinsic3d_torch/csrc/correct_sdf_dense.cu",
                replaces="intrinsic3d_tpu/ops/pallas/distance_transform.py:179", library_ms=None,
@@ -559,19 +625,6 @@ def small_fusion_agrees() -> None:
 PIPELINE_SCHEDULE = [(2, 2), (2, 1), (2, 0), (1, 0), (0, 0)]
 
 
-def refined_sdf_error(grid, center, radius: float):
-    """On valid voxels with |sdf_refined| < one voxel: the median |refined −
-    analytic sdf|, its p90, the same median of the grid's unrefined `sdf`,
-    and the voxel count (the bar of tests/test_intrinsic3d_e2e.py)."""
-    import numpy as np
-
-    true = np.linalg.norm(grid.voxel_to_world() - np.asarray(center), axis=-1) - radius
-    shell = grid.valid_mask() & (np.abs(grid.sdf_refined) < grid.voxel_size)
-    err = np.abs(grid.sdf_refined[shell] - true[shell])
-    err0 = np.abs(grid.sdf[shell] - true[shell])
-    return float(np.median(err)), float(np.percentile(err, 90)), float(np.median(err0)), int(shell.sum())
-
-
 def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: bool = False) -> dict:
     """`Intrinsic3D.refine` of `fused` on the card (stage 3 of
     bench_pipeline.py: 3 grid levels × 3 pyramid levels, 10 outer iterations
@@ -641,6 +694,170 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial)
 
 
+def level_starts_to_host(inputs) -> list:
+    """`run_refinement`'s recorded `optimize_level` inputs with every tensor
+    moved to the host (for the ranks): [(grid, params, depths, images,
+    voxel_sh, thres_shell, rgbd_level, mu0)]."""
+    out = []
+    for args, kw in inputs:
+        grid, _, params, _, _, depths, images, voxel_sh, thres_shell, rgbd_level = args
+        out.append((grid, [t.cpu().numpy() for t in params], depths.cpu().numpy(), images.cpu().numpy(), voxel_sh,
+                    thres_shell, rgbd_level, kw["mu0"]))
+    return out
+
+
+def multidevice_rank(mesh, fused, keyframes, starts) -> dict:
+    """One rank of step 7b: `parallel.dryrun.refinement_task` (the
+    two-rank refinement of `fused`, counters zeroed just before it and read
+    just after, then `optimize_level(mesh=)` from each recorded start of
+    the single-device run); rank 0 records the first inputs of K1 and K2 in
+    the refinement and holds the kernels against their plain versions on
+    them afterwards."""
+    import torch
+
+    from intrinsic3d_torch import observations
+    from intrinsic3d_torch.parallel import dryrun
+    from intrinsic3d_torch.refine import residuals
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    captured, restore = {}, []
+    if mesh.rank == 0:
+        restore = [capture_first_call(residuals, "bicubic_rows", captured),
+                   capture_first_call(observations, "nearest_rows", captured)]
+    try:
+        out = dryrun.refinement_task(mesh, fused, keyframes, starts)
+    finally:
+        for r in restore:
+            r()
+    if mesh.rank == 0:
+        out["kernels"] = check_kernels(captured)
+    return out
+
+
+def single_device_sensitivity(fusion: dict, single: dict, noise: float = 1e-7) -> list:
+    """Step 7's refinement again with `noise` (Gaussian, seeded) added to
+    the colour frames: the relative gap of each level's first cost to step
+    7's, printed — how far rounding-sized input changes move the
+    single-device trajectory itself."""
+    import numpy as np
+
+    from intrinsic3d_torch.io.memory_sensor import MemorySensor
+
+    sensor = fusion["sensor"]
+    rng = np.random.default_rng(7)
+    n = sensor.num_frames
+    colors = [np.clip(np.asarray(sensor.color(i)) + rng.normal(0.0, noise, np.shape(sensor.color(i))), 0.0, 1.0)
+              .astype(np.float32) for i in range(n)]
+    noisy = MemorySensor(sensor.color_cam, sensor.depth_cam, colors, [sensor.depth(i) for i in range(n)],
+                         [sensor.pose(i) for i in range(n)], sensor.depth_min, sensor.depth_max)
+    run = run_refinement("refinement_noise", noisy, fusion["keyframes"], fusion["initial"], fusion["grid"])
+    gaps = [abs(a["costs_before"][0] - b["costs_before"][0]) / b["costs_before"][0]
+            for a, b in zip(run["levels"], single["levels"])]
+    log(f"  single-device against itself with {noise:g} colour noise: first-cost gaps per level "
+        + " ".join(f"{lv['level']}={g:.2e}" for lv, g in zip(single["levels"], gaps)))
+    return gaps
+
+
+def multidevice_phase(fusion: dict, single: dict) -> dict:
+    """Steps 7b-7d (module docstring). `single` is step 7's run with its
+    recorded level starts. Returns the per-rank launches and rank 0's kernel
+    records."""
+    import numpy as np
+    import torch
+
+    from intrinsic3d_torch.parallel import dryrun
+
+    g0 = [r for r in single["levels"] if r["level"] == "g0p0"][0]
+    log(f"phase multidevice: 2 ranks on {torch.cuda.get_device_name(0)} over gloo; reckoning: the single-device "
+        f"finest level peaked at {g0['peak_bytes'] / 1e9:.2f} GB for {g0['elements']} elements, so each rank "
+        f"needs about {g0['peak_bytes'] / 2e9:.2f} GB plus the replicated images")
+    starts = level_starts_to_host(single["inputs"])
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    t0 = time.perf_counter()
+    ranks = dryrun.launch(multidevice_rank, 2, backend="gloo", device="cuda",
+                          args=(fusion["grid"], fusion["keyframes"], starts), timeout=900.0)
+    wall = time.perf_counter() - t0
+    del starts
+    log(f"  two-rank refinement: {wall:.1f}s wall (spawn, dataset and the level-start runs included); refine "
+        f"{[round(r['total_s'], 3) for r in ranks]} s per rank")
+    for r in ranks:
+        g0r = [lv for lv in r["levels"] if lv["level"] == "g0p0"][0]
+        log(f"  rank {r['rank']}: finest level {g0r['blocks']} blocks, brick {g0r['brick_rows']} rows, halo rows "
+            f"{g0r['halo_rows']} per mesh shift, {g0r['elements']} elements ({g0r['reason']}); peak memory "
+            f"{max(lv['peak_bytes'] for lv in r['levels']) / 1e9:.3f} GB; outer iteration at g0 median "
+            f"{statistics.median(g0r['iter_s']):.4f}s (min {min(g0r['iter_s']):.4f}, max {max(g0r['iter_s']):.4f}); "
+            f"collectives {r['collectives']['total_calls']} calls in {r['collectives']['total_s']:.3f}s "
+            f"{r['collectives']['calls']}; launches K1a {r['launches']['bicubic_rows_fwd']} K1b "
+            f"{r['launches']['bicubic_rows_fwdgrad']} K2 {r['launches']['nearest_rows']}")
+        for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
+            if r["launches"][name] == 0:
+                fail(f"rank {r['rank']} never launched {name} in the multi-device refinement")
+        for records in r["placements"]:
+            for name, total, mine in records:
+                if mine > total / 2 + 4096:
+                    fail(f"rank {r['rank']} holds {mine} of {total} bytes of {name}")
+    r0 = ranks[0]
+    if [lv["level"] for lv in r0["levels"]] != [lv["level"] for lv in single["levels"]]:
+        fail(f"multi-device schedule {[lv['level'] for lv in r0['levels']]} differs from the single-device one")
+    for i, (lv, ref) in enumerate(zip(r0["levels"], single["levels"])):
+        got, want = lv["costs_before"][0], ref["costs_before"][0]
+        log(f"  level {lv['level']}: first cost {got:.6f} (single-device {want:.6f}, rel {abs(got - want) / want:.2e}); "
+            f"last {lv['costs_after'][-1]:.6f} (single-device {ref['costs_after'][-1]:.6f}); tries {lv['tries']} "
+            f"(single-device {ref['tries']}); iteration median {statistics.median(lv['iter_s']):.4f}s "
+            f"(single-device {statistics.median(ref['iter_s']):.4f}s)")
+        # the first level starts from the same inputs as step 7's: gated; the
+        # later ones start where each run's own trajectory ended, which
+        # rounding moves as far as the single-device run's own gaps below
+        # show, so they are gated from the same start instead (next)
+        if i == 0 and not np.isclose(got, want, rtol=1e-3, atol=0.0):
+            fail(f"level {lv['level']}: first cost {got} not within rtol 1e-3 of the single-device {want}")
+        for it, (c0, c1) in enumerate(zip(lv["costs_before"], lv["costs_after"])):
+            if not (np.isfinite(c0) and np.isfinite(c1)) or c1 > c0:
+                fail(f"multi-device level {lv['level']} iteration {it}: accepted cost {c1} against {c0}")
+    # from each level's recorded start the two ranks run the loop that
+    # `Intrinsic3D(mesh=)` runs (`optimize_level(mesh=)`): its first cost and
+    # its first sharded GN step (halo'd stencils, all-reduced PCG and
+    # globals) against the single device's
+    for got, ref in zip(r0["from_starts"], single["levels"]):
+        for key in ("costs_before", "costs_after"):
+            g, want = got[key][0], ref[key][0]
+            log(f"  level {ref['level']} from the single-device run's start, 2 ranks: {key}[0] {g:.7f} "
+                f"(single-device {want:.7f}, rel {abs(g - want) / want:.2e}); costs {got['costs_before']} -> "
+                f"{got['costs_after']} tries {got['tries']}")
+            if not np.isclose(g, want, rtol=1e-3, atol=0.0):
+                fail(f"level {ref['level']} from its recorded start: {key}[0] {g} not within rtol 1e-3 of the "
+                     f"single-device {want}")
+    sdf = r0["sdf"]
+    log(f"  refined sdf vs the analytic sphere on {sdf['shell_voxels']} shell voxels: median {sdf['median']:.6f} m, "
+        f"p90 {sdf['p90']:.6f} m; unrefined median {sdf['unrefined_median']:.6f} m (bar: median < "
+        f"{r0['voxel_size']} m and <= 1.1 x unrefined)")
+    if not (sdf["shell_voxels"] > 1000 and sdf["median"] < r0["voxel_size"]
+            and sdf["median"] <= 1.1 * sdf["unrefined_median"]):
+        fail("the multi-device refined SDF misses the analytic sphere's bar")
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    (REPO / "chiprun_out" / "multidevice_levels.json").write_text(json.dumps(
+        dict(wall_s=wall, ranks=[{k: v for k, v in r.items() if k != "kernels"} for r in ranks]), indent=1))
+    single_device_sensitivity(fusion, single)
+
+    t0 = time.perf_counter()
+    for line in dryrun.launch(dryrun.dryrun_rank, 4, backend="gloo", device="cuda", timeout=600.0)[0]:
+        log(f"  {line}")
+    log(f"  dry run at 4 ranks over gloo on the card: {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    lp = dryrun.level_inputs(dryrun.small_problem())
+    runs = dryrun.launch(dryrun.pipeline_task, 1, backend="nccl", device="cuda", args=(lp,), timeout=300.0)[0]
+    for mode, r in runs.items():
+        got, want = r["mesh"], r["single"]
+        log(f"  one rank over nccl, optimize_level[{mode}]: costs {got['costs_before']} -> {got['costs_after']} "
+            f"(mesh=None {want['costs_before']} -> {want['costs_after']})")
+        if not (np.allclose(got["costs_before"], want["costs_before"], rtol=1e-4, atol=0.0)
+                and np.allclose(got["costs_after"], want["costs_after"], rtol=1e-3, atol=0.0)):
+            fail(f"optimize_level(mesh=) over nccl [{mode}] differs from mesh=None")
+    log(f"  one rank over nccl: {time.perf_counter() - t0:.1f}s")
+    return dict(launches=[r["launches"] for r in ranks], kernels=r0["kernels"])
+
+
 def pose_drift(poses, keyframes, initial) -> str:
     """How far the refined keyframe poses moved from the initial (true)
     ones: median and largest camera-centre shift and rotation. `poses` and
@@ -683,6 +900,8 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
     for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
         if run["launches"][name] == 0:
             fail(f"kernel {name} was never launched in the pipeline refinement")
+    from intrinsic3d_torch.synthetic import refined_sdf_error
+
     med, p90, med0, n_shell = refined_sdf_error(refined, dataset["center"], dataset["radius"])
     log(f"  refined sdf vs the analytic sphere on {n_shell} shell voxels: median {med:.6f} m, p90 {p90:.6f} m; "
         f"unrefined median {med0:.6f} m (bar: median < {refined.voxel_size} m and <= 1.1 x unrefined)")
@@ -695,10 +914,12 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
 def refinement_phase(fusion: dict) -> dict:
     """Stage 3 of bench_pipeline.py on the card from the 30-frame fused grid
     (`run_refinement`): fails unless `check_refinement`'s bars hold and every
-    level plans dense. Returns the launches and the per-level records."""
+    level plans dense. Returns the launches, the per-level records and the
+    levels' recorded `optimize_level` inputs (`inputs`)."""
     from intrinsic3d_torch.synthetic import PIPELINE_DATASET
 
-    run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"])
+    run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"],
+                         capture_levels=True)
     for r in run["levels"]:
         if not r["reason"].startswith("dense"):
             fail(f"level {r['level']} was planned '{r['reason']}', not dense")
@@ -1360,6 +1581,7 @@ def main() -> int:
         print(f"chip_smoke: the intrinsic3d_torch package is not beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    LOG.unlink(missing_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1474,8 +1696,21 @@ def main() -> int:
     for r in records:
         r["launches_pipeline_refinement"] = refinement["launches"][r["name"]]
     window_inputs, fusion_launches = fusion["window"], fusion["launches"]
-    del fusion
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
+
+    # --- phase 5b: the same refinement on two ranks sharing the card, the
+    # dry run at 4 ranks, one rank over NCCL; each rank's counts zeroed just
+    # before its refinement and read just after
+    multi = multidevice_phase(fusion, refinement)
+    del fusion, refinement["inputs"]
+    for r in records:
+        r["launches_multidevice"] = [lc[r["name"]] for lc in multi["launches"]]
+    for rec in multi["kernels"]:
+        by_name[rec.pop("name")]["multidevice"] = {
+            k: v for k, v in rec.items() if k not in ("route", "source", "replaces")}
+    log("phase check: the multi-device refinement ran through the kernels on every rank, matched the "
+        "single-device first costs and first steps from the same starts and met its bars; the 4-rank dry run and "
+        "the NCCL rank matched the single-device port")
 
     # --- phase 6: the three command-line apps at GoldenSceneSpec.full_scale();
     # counts zeroed just before the first app and read just after the last
@@ -1506,13 +1741,15 @@ def main() -> int:
     rec.update(launches=fusion_launches["correct_sdf_dense"], status="ok",
                launches_pipeline_refinement=refinement["launches"]["correct_sdf_dense"],
                launches_apps=apps["launches"]["correct_sdf_dense"],
-               launches_many_keyframe_refinement=many_launches["correct_sdf_dense"])
+               launches_many_keyframe_refinement=many_launches["correct_sdf_dense"],
+               launches_multidevice=[lc["correct_sdf_dense"] for lc in multi["launches"]])
     records.append(rec)
     del window_inputs
     for rec in check_sampler_sample(rows_inputs):
         rec.update(launches=0, status="ok", launches_pipeline_refinement=refinement["launches"][rec["name"]],
                    launches_apps=apps["launches"][rec["name"]],
-                   launches_many_keyframe_refinement=many_launches[rec["name"]])
+                   launches_many_keyframe_refinement=many_launches[rec["name"]],
+                   launches_multidevice=[lc[rec["name"]] for lc in multi["launches"]])
         records.append(rec)
     del rows_inputs
     log("phase kernels: the distance-transform kernel and bicubic_sample agree with their plain versions")

@@ -13,9 +13,10 @@ Counterpart of `intrinsic3d_tpu/grid/fusion.py` (reference
    divides on the host, as the JAX package does.
 
 The scene bounds are float64 numpy, copied verbatim. The JAX package's
-TPU-shaped parts are not carried over: its NaN-padded ray-step chunks, scans
-over frame stacks with donated buffers, and the `mesh=` sharding of the
-integration (which waits for the port's multi-card work).
+TPU-shaped parts are not carried over: its NaN-padded ray-step chunks and
+its scans over frame stacks with donated buffers. With `mesh` the
+integration is split over the ranks along the voxel axis (see
+`FusionVolume`).
 """
 
 from __future__ import annotations
@@ -133,8 +134,17 @@ class FusionVolume:
         integration_weight_sample: float = 10.0,
         alloc_step_factor: float = 0.25,
         device="cuda",
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        """`mesh` (a `parallel.sharding.Mesh`; every rank passes the same
+        frames) runs on the mesh's device and splits the integration over
+        the ranks: the per-voxel projective update is voxel-independent, so
+        each rank holds the accumulators and world points of its own range
+        of voxels (the voxel count padded to a multiple of the ranks) and
+        reads the whole images; `finalize` all-gathers the accumulators.
+        Allocation (the occupancy bitmap) runs whole on every rank."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.depth_cam = depth_cam
         self.color_cam = color_cam
         self.voxel_size = float(voxel_size)
@@ -220,7 +230,15 @@ class FusionVolume:
         self.grid.integration_weight_sample = self.weight_sample
         n = self.grid.num_voxels
         dev = self.device
-        self._world_pts = torch.as_tensor(self.grid.voxel_to_world(), device=dev)
+        pts = self.grid.voxel_to_world()
+        if self.mesh is not None:
+            from intrinsic3d_torch.parallel.staging import stage_sliced
+
+            pts = np.pad(pts.astype(np.float32), ((0, (-n) % self.mesh.size), (0, 0)))
+            self._world_pts = stage_sliced(self.mesh, pts)  # this rank's voxel range
+            n = self._world_pts.shape[0]
+        else:
+            self._world_pts = torch.as_tensor(pts, device=dev)
         self._acc = (
             torch.zeros(n, device=dev),  # Σ w·sdf
             torch.zeros(n, device=dev),  # Σ w
@@ -307,7 +325,12 @@ class FusionVolume:
     def finalize(self) -> VoxelGrid:
         """Weighted means into the host grid: sdf and weight, color in
         [0, 255]; unseen voxels keep sdf 0 and weight 0."""
-        wsdf, w, wc, cw = (a.cpu().numpy() for a in self._acc)
+        acc = self._acc
+        if self.mesh is not None:
+            from intrinsic3d_torch.parallel.staging import to_global
+
+            acc = [to_global(self.mesh, a)[: self.grid.num_voxels] for a in acc]
+        wsdf, w, wc, cw = (a.cpu().numpy() for a in acc)
         g = self.grid
         seen = w > 0.0
         g.sdf = np.where(seen, wsdf / np.maximum(w, np.float32(1e-12)), 0.0).astype(np.float32)

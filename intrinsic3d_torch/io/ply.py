@@ -61,9 +61,11 @@ def load_ply(filename: str) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray
     end = data.index(b"end_header") + len(b"end_header")
     header = data[:end].decode("ascii", errors="replace")
     body = data[end:]
-    # skip the newline after end_header
-    body = body[1:] if body[:1] in (b"\n", b"\r") else body
-    if body[:1] == b"\n":
+    # skip the one line terminator after end_header ("\n" or "\r\n"): the
+    # binary body may itself begin with a 0x0a or 0x0d byte
+    if body[:2] == b"\r\n":
+        body = body[2:]
+    elif body[:1] in (b"\n", b"\r"):
         body = body[1:]
 
     num_vertices = num_faces = 0

@@ -43,6 +43,19 @@ def _assemble_and_solve(H, albedo, lum, w, subvol, pairs, num_subvolumes: int, l
     return solve_block_system(a_blocks, b, pairs, s, lambda_reg)
 
 
+def normal_equation_parts(H, albedo, lum, w, subvol, num_subvolumes: int):
+    """The data term's unnormalized normal equations over a set of voxels:
+    (`A_u [S, 9, 9]` = Σ w·a²·H Hᵀ, `b_u [S, 9]` = Σ w·a·lum·H, Σw). Sums of
+    these over disjoint voxel sets, scaled by 1/Σw, are the normal equations
+    of their union (the sharded estimate all-reduces them,
+    `parallel/spmd_stages.py`)."""
+    ah = H * albedo.unsqueeze(-1)  # [M, 9]
+    outer = ah.unsqueeze(-1) * ah.unsqueeze(-2) * w.view(-1, 1, 1)
+    a_u = ah.new_zeros(num_subvolumes, NUM_SH, NUM_SH).index_add_(0, subvol, outer)
+    b_u = ah.new_zeros(num_subvolumes, NUM_SH).index_add_(0, subvol, ah * (w * lum).unsqueeze(-1))
+    return a_u, b_u, torch.sum(w)
+
+
 def solve_block_system(A_blocks, b, pairs, num_subvolumes: int, lambda_reg):
     """PCG solve of (data blocks + graph Laplacian ⊗ I₉) x = b, `A_blocks
     [S, 9, 9]`, `b [S, 9]`, `pairs [P, 2]` directed neighbour pairs of

@@ -48,12 +48,13 @@ def compute_observations_batch(
     normals: torch.Tensor,  # [D, 3] or [K, E, 3], matching iso_pts
     occlusion_distance,
     active=None,  # [K, D] float, 0 ⇒ weight not needed (not probed)
-) -> torch.Tensor:
+    return_uv: bool = False,
+):
     """All-frames observation weights `[K, D]` — `compute_observation`
     batched over keyframes, with the depth probe through `nearest_rows`.
     3-D `iso_pts`/`normals` give each keyframe row its own points (row k of
     the frame-bucketed layout holds the slots of frame k's visible
-    blocks)."""
+    blocks). `return_uv` also returns the projections `[K, D, 2]`."""
     k = poses.shape[0]
     d = iso_pts.shape[-2]
     if iso_pts.dim() == 2:
@@ -85,7 +86,8 @@ def compute_observations_batch(
         visible = torch.ones_like(valid)
     w = observation_weight(pt, n_cam, depth)
     keep = valid & visible & (depth > 0.0) & (act > 0.0)
-    return torch.where(keep, w, torch.zeros_like(w))
+    w = torch.where(keep, w, torch.zeros_like(w))
+    return (w, uv) if return_uv else w
 
 
 def _rot_only(poses: torch.Tensor) -> torch.Tensor:

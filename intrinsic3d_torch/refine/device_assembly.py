@@ -9,7 +9,10 @@ with the per-voxel top-N, the creation-time validity probe
 Per-level statics come from `build_level_static`, once per level. With
 `bmap` the E_g elements are frame-bucketed (`blockform.BlockAssembly`): the
 observations, the validity probe and the weights are evaluated only on each
-frame's visible blocks. The SPMD `axis_name` mode is not ported.
+frame's visible blocks. With `mesh` (the JAX function's `axis_name`) the
+assembly runs on one rank's brick of a spatially sharded level
+(`parallel/spmd.py`): its only cross-rank quantities, the weight sums of the
+normalization and the pose-observability counts, are all-reduced.
 """
 
 from __future__ import annotations
@@ -119,10 +122,12 @@ def device_assembly(
     bmap: Optional[torch.Tensor] = None,  # [K, NBc] int64 frame buckets (blockform), or None
     min_pose_obs: int = 0,
     device="cuda",
+    mesh=None,
 ) -> Tuple[BlockAssembly, Masks]:
     """One relinearization assembly over the frame-major elements: dense
     `[K, nb, B³]`, or frame-bucketed `[K, NBc, B³]` with `bmap`. Every tensor
-    argument must already lie on `device`."""
+    argument must already lie on `device`. With `mesh` the statics, params,
+    plans and buckets are one rank's (`parallel.spmd.SpmdLevel`)."""
     dev = resolve_device(device)
     check_on(
         dev, sdf=params.sdf, poses=params.poses, depths=depths, images=images, valid=st.valid,
@@ -277,14 +282,11 @@ def device_assembly(
         ok = (wsum > 0.0) & (lmbda > 0.0)
         return torch.where(ok, lmbda / torch.where(ok, wsum, one) * 1000.0, zero)
 
-    lam = torch.stack(
-        [
-            norm_lam(lambdas[0], torch.sum(eg_w)),
-            norm_lam(lambdas[1], torch.sum(er_w)),
-            norm_lam(lambdas[2], torch.sum(es_w)),
-            norm_lam(lambdas[3], torch.sum(ea_w)),
-        ]
-    )
+    wsums = torch.stack([torch.sum(eg_w), torch.sum(er_w), torch.sum(es_w), torch.sum(ea_w)])
+    if mesh is not None:
+        # the weight sums are the assembly's only cross-rank quantities
+        wsums = mesh.all_reduce(wsums)
+    lam = torch.stack([norm_lam(lambdas[i], wsums[i]) for i in range(4)])
     asm = asm._replace(eg_w=eg_w, lam=lam)
 
     # --- free-parameter masks (``optimizer.cpp:285-361``) ---------------------
@@ -299,6 +301,8 @@ def device_assembly(
         # exact Schur global solve diverges along its null directions. The
         # intrinsics/distortion are frozen when the TOTAL count is too low.
         nobs = torch.sum((eg_w > 0.0).reshape(kframes, -1), dim=-1)
+        if mesh is not None:
+            nobs = mesh.all_reduce(nobs)
         pose_row = pose_row * (nobs >= min_pose_obs).to(torch.float32).unsqueeze(-1)
         total_ok = (torch.sum(nobs) >= min_pose_obs).to(torch.float32)
         intr_row = intr_row * total_ok

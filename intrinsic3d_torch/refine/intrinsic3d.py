@@ -8,9 +8,10 @@ grid levels (coarse → fine; thin-shell sparsification; ×2 upsample between
 levels) × RGB-D pyramid levels (all of them only on the coarsest grid),
 each estimating spatially-varying SH lighting and running the joint GN
 optimization; voxel colors are recomputed and the refined poses and
-intrinsics written back after every level. The JAX package's mesh
-(multi-device) branches and its background preparation threads are not
-ported.
+intrinsics written back after every level. With `mesh` every device stage
+of the level loop runs spatially sharded over the ranks
+(`refine/mesh_pipeline.py`). The JAX package's background preparation
+threads are not ported.
 """
 
 from __future__ import annotations
@@ -79,12 +80,28 @@ class Intrinsic3D:
         cg_coeff_dtype: str = "bfloat16",
         cg_eta: float = 0.1,
         stats: Optional[dict] = None,
+        mesh=None,
     ):
+        """`mesh` (a `parallel.sharding.Mesh`; every rank constructs the
+        engine with the same inputs) runs on the mesh's device and shards
+        every device stage of the level loop over the ranks: the joint GN
+        optimization (bricked voxel blocks with halo exchange, the device
+        assembly on the brick, all-reduced globals; parallel/spmd.py), the
+        SVSH lighting estimate with the per-voxel SH, and the recolor sweep
+        (parallel/spmd_stages.py), each grid level's loop in
+        `refine/mesh_pipeline.py::MeshLevelRunner`, and the initial
+        recolorization through the same sharded sweep
+        (`_initial_recolor_mesh`). The host stages between grid levels
+        (×2 upsample, thin-shell sparsify) run on every rank.
+        `mesh_placements` then holds each grid level's (name, global bytes,
+        this rank's bytes) records."""
         self.cfg = cfg
         self.sensor = sensor
         self.keyframe_ids = list(keyframe_ids)
         self.cg_iters = cg_iters
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_placements: List[list] = []
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.solver_kw = dict(cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta)
         self.callbacks: List[Callable[[RefinementInfo], None]] = []
         self.lighting = None
@@ -158,6 +175,32 @@ class Intrinsic3D:
         cols, has = cols.cpu().numpy(), has.cpu().numpy()
         grid.color = np.where(has[:, None], cols, grid.color).astype(np.float32)
 
+    def _initial_recolor_mesh(self, grid: VoxelGrid, params: Params) -> None:
+        """The initial recolorization (``intrinsic3d.cpp:214-217``) sharded
+        over `self.mesh` through the level loop's `SpmdStages.recolor`, so no
+        device stage holds the full grid on one rank. A grid without a
+        subvolume partition (an empty scene) takes the single-device sweep."""
+        from intrinsic3d_torch.grid.blocks import BlockLayout
+        from intrinsic3d_torch.parallel.spmd import make_spmd_context
+        from intrinsic3d_torch.parallel.spmd_stages import SpmdStages, place_block_params
+
+        layout = BlockLayout.build(grid, blocks_multiple=max(8, self.mesh.size))
+        stages = SpmdStages.build(
+            self.mesh, make_spmd_context(layout, self.mesh), layout, grid, self.sensor.color_cam,
+            self.depths_lvl[0], self.colors0, self.cfg.subvolume_size_sh, self.cfg.num_observations,
+            self.cfg.occlusion_distance,
+        )
+        if stages is None:
+            self.recompute_colors(grid, params)
+            return
+        color_bd, has_bd = stages.recolor(place_block_params(self.mesh, layout, params), stages.stage_colors(grid.color))
+        cols, has = stages.colors_to_table(color_bd, has_bd)
+        grid.color = np.where(has[:, None], cols, grid.color).astype(np.float32)
+        self.mesh_placements.append(
+            [("initial_recolor.color", color_bd.element_size() * layout.num_blocks * color_bd[0].numel(),
+              color_bd.element_size() * color_bd.numel())]
+        )
+
     def _write_back(self, grid: VoxelGrid, params: Params) -> None:
         grid.sdf_refined = params.sdf.cpu().numpy().astype(np.float32)
         grid.albedo = params.albedo.cpu().numpy().astype(np.float32)
@@ -176,6 +219,61 @@ class Intrinsic3D:
 
     # ------------------------------------------------------------------
 
+    def _refine_grid_level(self, grid: VoxelGrid, params: Params, mu, nbr4, thres_shell: float, grid_lvl: int,
+                           coarsest: int, stats: Optional[dict]):
+        """The pyramid levels of one grid level on one device: lighting,
+        `optimize_level`, recolor and write-back, callbacks. Returns
+        (params, mu)."""
+        cfg = self.cfg
+        for rgbd_lvl in range(cfg.num_rgbd_levels - 1, -1, -1):
+            if rgbd_lvl > 0 and grid_lvl < coarsest:
+                continue
+            log.info("level %d (pyramid %d)", grid_lvl, rgbd_lvl)
+            # lighting estimation (``intrinsic3d.cpp:250-270``)
+            t0 = time.perf_counter()
+            self._write_back(grid, params)
+            svsh, voxel_sh = estimate_svsh(
+                grid, cfg.subvolume_size_sh, cfg.subvolume_sh_lambda_reg, thres_shell, weighted=True,
+                with_voxel_sh=True, nbr4=nbr4, device=self.device,
+            )
+            if svsh is None:
+                log.warning("lighting estimation failed on level %d", grid_lvl)
+                break
+            self.lighting = svsh
+            self._phase_end(stats, f"svsh[g{grid_lvl}p{rgbd_lvl}]", t0)
+
+            params, mu, ostats = optimize_level(
+                grid, None, params, cfg, self.sensor.color_cam, self.depths_lvl[rgbd_lvl],
+                self.intens_lvl[rgbd_lvl], voxel_sh, thres_shell, rgbd_lvl, mu0=mu, cg_iters=self.cg_iters,
+                device=self.device, **self.solver_kw,
+            )
+            if stats is not None:
+                tag = f"p{rgbd_lvl}v{grid.num_voxels}"
+                stats[f"level_setup[{tag}]"] = ostats.setup_seconds
+                stats[f"solve[{tag}]"] = sum(ostats.iter_seconds)
+
+            # finish rgbd level (``intrinsic3d.cpp:353-378``)
+            t0 = time.perf_counter()
+            self._write_back(grid, params)
+            self.recompute_colors(grid, params, nbr4=nbr4)
+            self._update_sensor(params)
+            self._phase_end(stats, f"recolor[g{grid_lvl}p{rgbd_lvl}]", t0)
+
+            info = RefinementInfo(
+                grid_level=grid_lvl,
+                pyramid_level=rgbd_lvl,
+                num_grid_levels=cfg.num_grid_levels,
+                num_pyramid_levels=cfg.num_rgbd_levels,
+                grid=grid,
+                params=params,
+                lighting=svsh,
+                stats=ostats,
+            )
+            for cb in self.callbacks:
+                cb(info)
+
+        return params, mu
+
     def refine(self, fused: VoxelGrid, stats: Optional[dict] = None) -> VoxelGrid:
         """Run the full double coarse-to-fine refinement
         (``intrinsic3d.cpp:206-295``). Returns the refined (finest) grid."""
@@ -185,7 +283,10 @@ class Intrinsic3D:
             grid, self._tensor(self.poses0), self._tensor(self.intr0), self._tensor(self.dist0)
         )
         t0 = time.perf_counter()
-        self.recompute_colors(grid, params)
+        if self.mesh is not None:
+            self._initial_recolor_mesh(grid, params)
+        else:
+            self.recompute_colors(grid, params)
         self._phase_end(stats, "initial_recolor", t0)
 
         mu = 1e-4
@@ -207,55 +308,19 @@ class Intrinsic3D:
                 params = self._params(grid, params.poses, params.intr, params.dist)
             # the level's stencil tables, shared by SVSH, recolor and the solver
             t0 = time.perf_counter()
-            nbr4 = level_topology(grid).nbr4_idx
+            topo = level_topology(grid)
+            nbr4 = topo.nbr4_idx
             self._phase_end(stats, f"topology[g{grid_lvl}]", t0)
 
-            for rgbd_lvl in range(cfg.num_rgbd_levels - 1, -1, -1):
-                if rgbd_lvl > 0 and grid_lvl < coarsest:
-                    continue
-                log.info("level %d (pyramid %d)", grid_lvl, rgbd_lvl)
-                # lighting estimation (``intrinsic3d.cpp:250-270``)
-                t0 = time.perf_counter()
-                self._write_back(grid, params)
-                svsh, voxel_sh = estimate_svsh(
-                    grid, cfg.subvolume_size_sh, cfg.subvolume_sh_lambda_reg, thres_shell, weighted=True,
-                    with_voxel_sh=True, nbr4=nbr4, device=self.device,
-                )
-                if svsh is None:
-                    log.warning("lighting estimation failed on level %d", grid_lvl)
-                    break
-                self.lighting = svsh
-                self._phase_end(stats, f"svsh[g{grid_lvl}p{rgbd_lvl}]", t0)
+            if self.mesh is not None:
+                # every device stage of the level loop sharded over the mesh
+                from intrinsic3d_torch.refine.mesh_pipeline import MeshLevelRunner
 
-                params, mu, ostats = optimize_level(
-                    grid, None, params, cfg, self.sensor.color_cam, self.depths_lvl[rgbd_lvl],
-                    self.intens_lvl[rgbd_lvl], voxel_sh, thres_shell, rgbd_lvl, mu0=mu, cg_iters=self.cg_iters,
-                    device=self.device, **self.solver_kw,
-                )
-                if stats is not None:
-                    tag = f"p{rgbd_lvl}v{grid.num_voxels}"
-                    stats[f"level_setup[{tag}]"] = ostats.setup_seconds
-                    stats[f"solve[{tag}]"] = sum(ostats.iter_seconds)
-
-                # finish rgbd level (``intrinsic3d.cpp:353-378``)
-                t0 = time.perf_counter()
-                self._write_back(grid, params)
-                self.recompute_colors(grid, params, nbr4=nbr4)
-                self._update_sensor(params)
-                self._phase_end(stats, f"recolor[g{grid_lvl}p{rgbd_lvl}]", t0)
-
-                info = RefinementInfo(
-                    grid_level=grid_lvl,
-                    pyramid_level=rgbd_lvl,
-                    num_grid_levels=cfg.num_grid_levels,
-                    num_pyramid_levels=cfg.num_rgbd_levels,
-                    grid=grid,
-                    params=params,
-                    lighting=svsh,
-                    stats=ostats,
-                )
-                for cb in self.callbacks:
-                    cb(info)
+                runner = MeshLevelRunner(self, grid, topo, thres_shell, grid_lvl, coarsest)
+                params, mu = runner.run(params, mu, self.cg_iters, stats=stats)
+                self.mesh_placements.append(runner.placement)
+            else:
+                params, mu = self._refine_grid_level(grid, params, mu, nbr4, thres_shell, grid_lvl, coarsest, stats)
 
             # finish grid level: ×2 upsample (``intrinsic3d.cpp:320-333``)
             if grid_lvl > 0:

@@ -14,8 +14,9 @@ layout, statics and shift plans for a caller that steps it itself.
 `optimize_level(use_blocks=False)` runs the flat-table oracle instead
 (`refine.assembly.build_assembly` + the flat `gn_iteration`). The level's
 setup and solve seconds go to `timer.record_phase` under the JAX package's
-names. The JAX package's background `LevelPrep` and the SPMD mesh path are
-not ported.
+names. `optimize_level(mesh=)` runs the same outer loop on one rank's brick
+of a spatially sharded level (`parallel.spmd.SpmdLevel`). The JAX package's
+background `LevelPrep` is not ported.
 """
 
 from __future__ import annotations
@@ -373,6 +374,9 @@ class OptimizeStats:
     setup_seconds: float = 0.0
     iter_seconds: list = dataclasses.field(default_factory=list)
     peak_bytes: int = 0
+    brick_rows: int = 0  # under a mesh: the rank's block rows m
+    halo_rows: tuple = ()  # under a mesh: rows exchanged per active mesh shift
+    placement: list = dataclasses.field(default_factory=list)  # under a mesh: `SpmdLevel.placement()`
 
 
 def optimize_level(
@@ -383,7 +387,7 @@ def optimize_level(
     base_cam: Camera,
     depths_level: torch.Tensor,  # [K, H, W]
     images_level: torch.Tensor,  # [K, H, W] intensity
-    voxel_sh: np.ndarray,  # [N, 9]
+    voxel_sh: Optional[np.ndarray],  # [N, 9]; None under a mesh with `eg_sh`
     thres_shell: float,
     rgbd_level: int,
     mu0: float = 1e-4,
@@ -393,6 +397,9 @@ def optimize_level(
     cg_eta: float = 0.1,
     use_blocks: bool = True,
     device="cuda",
+    mesh=None,
+    ctx=None,
+    eg_sh: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, float, OptimizeStats]:
     """Run `cfg.iterations` relinearized GN steps of one (grid, pyramid)
     level on `device`; returns the updated table-order params, the final
@@ -416,11 +423,28 @@ def optimize_level(
     distortion and takes one flat `gn_iteration` (exact products, joint
     PCG; `budget` and `cg_coeff_dtype` do not apply).
 
+    `mesh` (a `parallel.sharding.Mesh`; every rank calls with the same
+    arguments) runs the block path spatially sharded on the mesh's device:
+    the layout's block count is a multiple of max(8, ranks), each rank steps
+    its brick through `parallel.spmd.SpmdLevel` (device assembly and solve,
+    halo'd stencils, all-reduced globals) and the result is gathered back to
+    every rank. The default budget is the mesh's: one card's times the
+    ranks over the ranks sharing a card, as the element fields split about
+    1/n a rank. A streamed plan (`eg_chunks > 1`) streams each rank's
+    brick; a step out of memory is not replanned. `ctx` (a
+    `parallel.spmd.SpmdContext` of this grid) reuses its layout and halo
+    plans, and `eg_sh` (this rank's `[9, m, B³]` per-voxel SH on that
+    layout, `SpmdStages.svsh`) replaces `voxel_sh`: the multi-device level
+    loop (`refine.mesh_pipeline.MeshLevelRunner`) passes both, so the
+    level's per-voxel SH is never whole on one rank.
+
     On the card the peak-memory counter is reset at the start, so
     `peak_bytes` is this level's peak. `base_cam` is unused, as in the JAX
     package."""
     del base_cam
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and not use_blocks:
+        raise ValueError("optimize_level(mesh=...) runs the block layout only")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     pyr_scale = pyramid_level_to_scale(rgbd_level)
@@ -483,9 +507,12 @@ def optimize_level(
         return params, finish(mu), stats
 
     t0 = time.perf_counter()
-    layout = BlockLayout.build(grid)
+    if ctx is not None:
+        layout = ctx.layout
+    else:
+        layout = BlockLayout.build(grid, blocks_multiple=8 if mesh is None else max(8, mesh.size))
     if budget is None:
-        budget = eg_hbm_budget(dev)
+        budget = eg_hbm_budget(dev) * (1.0 if mesh is None else mesh.size / mesh.ranks_on_device)
 
     def plan(at_budget):
         return plan_eg_layout(
@@ -514,11 +541,23 @@ def optimize_level(
             )
 
     fb, reason, eg_chunks = plan(budget)
-    level = prepare_level(
-        grid, level_topology(grid) if topo is None else topo, voxel_sh, params, cfg, thres_shell, w, h,
-        lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale, device=dev,
-        layout=layout, bmap=fb, eg_chunks=eg_chunks,
-    )
+    topo = level_topology(grid) if topo is None else topo
+    if mesh is None:
+        level = prepare_level(
+            grid, topo, voxel_sh, params, cfg, thres_shell, w, h,
+            lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale, device=dev,
+            layout=layout, bmap=fb, eg_chunks=eg_chunks,
+        )
+        bparams = level.params
+    else:
+        level = _spmd_level(mesh, ctx, layout, grid, topo, voxel_sh, eg_sh, cfg, thres_shell, pyr_scale, w, h,
+                            fb, eg_chunks, depths_level, images_level, cg_iters, cg_coeff_dtype, cg_eta)
+        bparams = level.begin(
+            params._replace(sdf=table_to_dense(layout, params.sdf), albedo=table_to_dense(layout, params.albedo))
+        )
+        stats.brick_rows = level.ctx.m
+        stats.halo_rows = tuple(level.ctx.halo.hs)
+        stats.placement = level.placement()
     record_plan(fb, reason, eg_chunks)
     stats.num_blocks = layout.num_blocks
     stats.setup_seconds = time.perf_counter() - t0
@@ -528,7 +567,6 @@ def optimize_level(
         stats.setup_seconds, layout.num_blocks, grid.num_voxels, stats.elements, reason,
     )
 
-    bparams = level.params
     solver = dict(
         lm_steps=cfg.lm_steps, cg_iters=cg_iters, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs,
         cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta,
@@ -537,6 +575,11 @@ def optimize_level(
         t0 = time.perf_counter()
         lambda_r, lambda_s = lambdas_at(itr)
         lambdas = torch.tensor([cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a], dtype=torch.float32, device=dev)
+        if mesh is not None:
+            out = level.step(bparams, lambdas, mu)
+            bparams, mu = out[0], out[3]
+            record_iteration(itr, t0, out)
+            continue
         out_of_memory = None
         try:
             out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
@@ -565,4 +608,27 @@ def optimize_level(
             out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
         bparams, mu = out[0], out[3]
         record_iteration(itr, t0, out)
+    if mesh is not None:
+        bparams = level.finish(bparams)
     return params_from_block(layout, bparams), finish(mu), stats
+
+
+def _spmd_level(mesh, ctx, layout, grid, topo, voxel_sh, eg_sh, cfg, thres_shell, pyr_scale, w, h, fb, eg_chunks,
+                depths_level, images_level, cg_iters, cg_coeff_dtype, cg_eta):
+    """This rank's `SpmdLevel` of one level: the statics built on the host
+    and sliced to the rank's brick; with `eg_sh` the per-voxel SH is the
+    rank's own and the host statics carry zeros in its place."""
+    from intrinsic3d_torch.parallel.spmd import SpmdLevel
+
+    if eg_sh is not None:
+        voxel_sh = np.zeros((grid.num_voxels, 9), np.float32)
+    return SpmdLevel(
+        mesh, layout, build_level_static(layout, grid, topo, voxel_sh, device="cpu"), depths_level, images_level,
+        num_obs=cfg.num_observations, width=w, height=h, pyr_scale=float(pyr_scale),
+        voxel_size=float(grid.voxel_size), truncation=float(grid.truncation), thres_shell=float(thres_shell),
+        occlusion_distance=float(cfg.occlusion_distance), fix_poses=cfg.fix_poses,
+        fix_intrinsics=cfg.fix_intrinsics, fix_distortion=cfg.fix_distortion, use_albedo=cfg.lambda_a >= 0.0,
+        bmap=fb, lm_steps=cfg.lm_steps, cg_iters=cg_iters, cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta, ctx=ctx,
+        eg_sh_device=eg_sh, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs, eg_chunks=eg_chunks,
+    )
+

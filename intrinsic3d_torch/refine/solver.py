@@ -24,7 +24,16 @@ dispatches on the assembly type, as the JAX function does:
 
 The PCG and LM loops run on the host: each PCG step reads its residual norm
 and each LM try its acceptance, one device→host sync each (at most
-lm_steps × (cg_iters + 1) per call). Not ported: the SPMD `axis_name` mode.
+lm_steps × (cg_iters + 1) per call).
+
+With `mesh` (a `parallel.sharding.Mesh`; the JAX function's `axis_name`)
+the block branch runs on one rank's brick of a spatially sharded problem
+(`parallel/spmd.py`): the voxel leaves are the rank's block rows, the global
+leaves are replicated, and the cost, the global gradient, diagonal and
+Gauss-Newton products, the Schur Gram matrix and every inner product are
+all-reduced. Each host read of the loops is taken after its all-reduce, so
+every rank takes the same branch and calls the same collectives in the same
+order.
 """
 
 from __future__ import annotations
@@ -125,6 +134,31 @@ def _tdot(a, b) -> torch.Tensor:
     return sum(torch.sum(x * y) for x, y in zip(a, b))
 
 
+def _make_spmd(mesh):
+    """Reduction helpers of the sharded block branch (`mesh` given): tree
+    dots all-reduce the voxel part and add the replicated globals' part once;
+    `psum_globals` all-reduces a Params' global leaves (one collective),
+    `psum_scalar` a tensor, `psum_g3` the three global cotangents. Without a
+    mesh every helper is the single-device form."""
+    if mesh is None:
+        return _tdot, lambda p: p, lambda x: x, lambda *g: g
+
+    def psum_g3(gp, gi, gd):
+        k = gp.shape[0]
+        flat = mesh.all_reduce(torch.cat([gp.reshape(-1), gi, gd]))
+        return flat[: 6 * k].reshape(k, 6), flat[6 * k : 6 * k + 4], flat[6 * k + 4 :]
+
+    def tdot(a, b):
+        local = torch.sum(a.sdf * b.sdf) + torch.sum(a.albedo * b.albedo)
+        rep = torch.sum(a.poses * b.poses) + torch.sum(a.intr * b.intr) + torch.sum(a.dist * b.dist)
+        return mesh.all_reduce(local) + rep
+
+    def psum_globals(p: Params) -> Params:
+        return p._replace(**dict(zip(("poses", "intr", "dist"), psum_g3(p.poses, p.intr, p.dist))))
+
+    return tdot, psum_globals, mesh.all_reduce, psum_g3
+
+
 def _mask(m, v: Params) -> Params:
     return Params(*(mi * vi for mi, vi in zip(m, v)))
 
@@ -165,6 +199,7 @@ def gn_iteration(
     cg_eta: float = 0.1,
     eg_chunks: int = 1,
     device="cuda",
+    mesh=None,
 ) -> Tuple[Params, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """One relinearize→solve→accept cycle (``optimizer.cpp:119-173`` +
     ``nls_solver.cpp:296-337``) on a `blockform.BlockAssembly` or a
@@ -181,9 +216,16 @@ def gn_iteration(
     cast fields (float32-accumulated); one-shot takes them from the float32
     fields. The flat table runs exact products and the joint PCG.
 
+    `mesh` runs the block branch on this rank's brick of a sharded problem
+    (module docstring); `params`, `asm` and `masks` are then the rank's
+    (`parallel.spmd.place_spmd_problem`, `SpmdLevel`).
+
     Returns (params', cost_before, cost_after, mu', num_tries)."""
     dev = resolve_device(device)
     mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
+    tdot, psum_globals, psum_scalar, psum_g3 = _make_spmd(mesh)
+    if mesh is not None and not isinstance(asm, blockform.BlockAssembly):
+        raise ValueError("gn_iteration(mesh=...) runs the block layout only")
     if isinstance(asm, blockform.BlockAssembly):
         check_on(
             dev, sdf=params.sdf, poses=params.poses, eg_w=asm.eg_w, mask=masks.sdf,
@@ -194,16 +236,17 @@ def gn_iteration(
             cost0, lin = blockform.linearize_block_chunked(params, asm, eg_chunks, getattr(torch, cg_coeff_dtype))
         else:
             cost0, lin = blockform.linearize_block(params, asm)
-        grad = blockform.jtv_block(lin, asm, (lin.r0_g, lin.r0_r, lin.r0_s, lin.r0_a))
-        diag = blockform.diag_from_lin(lin, asm)
+        cost0 = psum_scalar(cost0)
+        grad = psum_globals(blockform.jtv_block(lin, asm, (lin.r0_g, lin.r0_r, lin.r0_s, lin.r0_a)))
+        diag = psum_globals(blockform.diag_from_lin(lin, asm))
         if not chunked and cg_coeff_dtype != "float32":
             lin = blockform.cast_lin(lin, getattr(torch, cg_coeff_dtype))
 
         def normal_apply(v):
-            return blockform.jtv_block(lin, asm, blockform.jv_block(lin, asm, v))
+            return psum_globals(blockform.jtv_block(lin, asm, blockform.jv_block(lin, asm, v)))
 
         def cost_of(cand):
-            return blockform.block_total_cost(cand, asm, eg_chunks)
+            return psum_scalar(blockform.block_total_cost(cand, asm, eg_chunks))
 
     else:
         check_on(dev, sdf=params.sdf, poses=params.poses, eg_w=asm.eg_w, er_idx=asm.er_idx, mask=masks.sdf)
@@ -224,11 +267,11 @@ def gn_iteration(
 
     def lm_pred(delta, mu):
         # LM model reduction ½·δᵀ(μDδ − g) for the gain ratio
-        return 0.5 * (_tdot(delta, b) + mu * _tdot(delta, _tmap(lambda d_, v: d_ * v, diag, delta)))
+        return 0.5 * (tdot(delta, b) + mu * tdot(delta, _tmap(lambda d_, v: d_ * v, diag, delta)))
 
     if schur_globals:
         k = params.poses.shape[0]
-        C = blockform.global_gram(lin)
+        C = psum_scalar(blockform.global_gram(lin))
         mg = blockform.flatten_globals(masks.poses, masks.intr, masks.dist)
         dg = blockform.flatten_globals(diag.poses, diag.intr, diag.dist)
         bg = blockform.flatten_globals(b.poses, b.intr, b.dist)
@@ -251,7 +294,7 @@ def gn_iteration(
 
             def reduced_apply(vs, va):
                 y_g, y_r, y_s, y_a = blockform.jv_block(lin, asm, Params(vs, va, *zerog), include_globals=False)
-                z = blockform.flatten_globals(*blockform.jgt_apply(lin, y_g))
+                z = blockform.flatten_globals(*psum_g3(*blockform.jgt_apply(lin, y_g)))
                 up, ui, ud = blockform.unflatten_globals(csolve(z), k)
                 y_g2 = y_g - blockform.jg_apply(lin, up, ui, ud)
                 out = blockform.jtv_block(lin, asm, (y_g2, y_r, y_s, y_a), include_globals=False)
@@ -284,12 +327,15 @@ def gn_iteration(
                     for ri, di, mi in zip(r2, (diag.sdf, diag.albedo), (masks.sdf, masks.albedo))
                 )
 
-            (ds, da), _ = _pcg(matvec, precond, b2, cg_iters, eta=cg_eta)
+            def tdot2(a2, c2):
+                return psum_scalar(torch.sum(a2[0] * c2[0]) + torch.sum(a2[1] * c2[1]))
+
+            (ds, da), _ = _pcg(matvec, precond, b2, cg_iters, eta=cg_eta, tdot=tdot2)
             ds = masks.sdf * ds
             da = masks.albedo * da
             # back-substitution: δ_g = C̃⁻¹(b_g − J_gᵀ Jᵥ δᵥ)
             yv = blockform.jv_block(lin, asm, Params(ds, da, *zerog), include_globals=False)[0]
-            zv = blockform.flatten_globals(*blockform.jgt_apply(lin, yv))
+            zv = blockform.flatten_globals(*psum_g3(*blockform.jgt_apply(lin, yv)))
             dp, di_, dd = blockform.unflatten_globals(csolve(bg - zv), k)
             delta = Params(ds, da, dp, di_, dd)
             cand = _tmap(lambda p, d: p + d, params, delta)
@@ -310,7 +356,7 @@ def gn_iteration(
                     r, diag, masks,
                 )
 
-            delta, _ = _pcg(matvec, precond, b, cg_iters, eta=cg_eta)
+            delta, _ = _pcg(matvec, precond, b, cg_iters, eta=cg_eta, tdot=tdot)
             delta = _mask(masks, delta)
             cand = _tmap(lambda p, d: p + d, params, delta)
             return cand, cost_of(cand), lm_pred(delta, mu)

@@ -48,6 +48,18 @@ def sphere_sdf(points: np.ndarray, center, radius: float) -> np.ndarray:
     return np.linalg.norm(np.asarray(points) - np.asarray(center), axis=-1) - radius
 
 
+def refined_sdf_error(grid: VoxelGrid, center, radius: float) -> Tuple[float, float, float, int]:
+    """On valid voxels with |sdf_refined| < one voxel: the median |refined −
+    analytic sdf| of the sphere, its p90, the same median of the grid's
+    unrefined `sdf`, and the voxel count (the bar of
+    tests/test_intrinsic3d_e2e.py)."""
+    true = sphere_sdf(grid.voxel_to_world(), center, radius)
+    shell = grid.valid_mask() & (np.abs(grid.sdf_refined) < grid.voxel_size)
+    err = np.abs(grid.sdf_refined[shell] - true[shell])
+    err0 = np.abs(grid.sdf[shell] - true[shell])
+    return float(np.median(err)), float(np.percentile(err, 90)), float(np.median(err0)), int(shell.sum())
+
+
 def look_at_pose(eye, target, up=(0.0, -1.0, 0.0)) -> np.ndarray:
     """Camera-to-world pose, +z forward, y down (RGB-D convention)."""
     eye = np.asarray(eye, np.float64)

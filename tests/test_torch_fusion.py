@@ -526,7 +526,8 @@ def test_fusion_entry_points_default_to_the_card(orbit, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of `intrinsic3d_torch`, and `chip_smoke.py`, imported in
+    """Every module of `intrinsic3d_torch` (the multi-device `parallel.*` and
+    `refine.mesh_pipeline` among them), and `chip_smoke.py`, imported in
     a fresh interpreter, load no module of JAX or of the JAX package; nor do
     the three apps' `main`s (resolved, not run) and a call into the native
     host library (built on first use)."""
@@ -538,7 +539,9 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "new = ['native', 'visualization', 'io.dataset', 'io.golden_dataset', 'io.ply', 'io.trajectory',\n"
         "       'io.tsdf_io', 'mesh.extract', 'mesh.marching_cubes', 'mesh.metrics', 'mesh.util',\n"
-        "       'apps.common', 'apps.app_intrinsic3d', 'timer', 'bench', 'bench_pipeline']\n"
+        "       'apps.common', 'apps.app_intrinsic3d', 'timer', 'bench', 'bench_pipeline',\n"
+        "       'parallel.sharding', 'parallel.halo', 'parallel.staging', 'parallel.spmd',\n"
+        "       'parallel.spmd_stages', 'parallel.dryrun', 'refine.mesh_pipeline']\n"
         "missing = [n for n in new if 'intrinsic3d_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "from intrinsic3d_torch.apps import app_fusion, app_intrinsic3d, app_keyframes\n"

@@ -194,6 +194,25 @@ def test_save_ply_byte_identical_and_loads_match(tmp_path, with_colors):
             np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("first_byte", [0x0A, 0x0D])
+def test_load_ply_body_starting_with_a_line_end_byte(tmp_path, first_byte):
+    """A binary body whose first byte is 0x0a or 0x0d (here the first
+    vertex's x) loads as written: only the header's own line terminator is
+    skipped. (The JAX package's reader also drops a leading 0x0a of the
+    body, misreading such a file.)"""
+    rng = np.random.default_rng(2)
+    verts = rng.normal(0, 0.2, (31, 3)).astype(np.float32)
+    verts[0, 0] = np.frombuffer(bytes([first_byte, 0x00, 0x80, 0x3F]), "<f4")[0]
+    faces = rng.integers(0, 31, (40, 3)).astype(np.int32)
+    for colors in (None, rng.uniform(0, 255, (31, 3))):
+        save_ply(str(tmp_path / "m.ply"), verts, faces, colors)
+        v, f, c = load_ply(str(tmp_path / "m.ply"))
+        np.testing.assert_array_equal(v, verts)
+        np.testing.assert_array_equal(f, faces)
+        if colors is not None:
+            np.testing.assert_array_equal(c, np.clip(colors, 0, 255).astype(np.uint8))
+
+
 def _random_grid(rng, sbr: bool, n=400, cls=VoxelGrid):
     coords = np.unique(rng.integers(-40, 40, (n, 3)), axis=0).astype(np.int32)
     rng.shuffle(coords)
