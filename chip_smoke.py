@@ -61,7 +61,15 @@ tries, 12 CG steps):
    unless the schedule is (2,2) (2,1) (2,0) (1,0) (0,0), every level is
    dense, no accepted cost rises, every field is finite, the voxel size
    ends at 1 mm, the bicubic and depth-probe kernels launched, and the
-   refined SDF meets the analytic sphere's bar.
+   refined SDF meets the analytic sphere's bar. It keeps a host copy of
+   the inputs of each level's first K1a (value sampler) and K2 (depth
+   probe) call inside `optimize_level` (off the card, so the levels' peak
+   memory holds none of it; the copies' seconds are printed) and the
+   level's launches, holds both kernels against their plain versions on
+   them after the run, and prints per level M,
+   the active share, the times, the bound and the share of the bound, and
+   per kernel the sum over levels of launches x L2-flushed ms (the `levels`
+   and `main_path_ms` of the K1a and K2 records).
 
 The multi-device refinement (`intrinsic3d_torch.parallel`, ranks spawned
 by `parallel.dryrun.launch` after the kernels and the native library are
@@ -161,21 +169,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 LOG = REPO / "chiprun_out" / "chip_smoke.log"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the float32
-# rate outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-
-# float operations per ACTIVE element, counted from csrc/bicubic_rows.cu:
-# 2×(weight polynomials, ~10 ops each) + 16 tap FMAs + 4 row FMAs (an FMA is
-# 2 ops) for the value; 4 weight polynomials + 2×16 + 3×4 FMAs with the
-# derivatives; the backward drops the value's 4 row FMAs and adds 2 products
-# by g
-BICUBIC_OPS = {
-    "fwd": 2 * 10 + 2 * (16 + 4),
-    "fwdgrad": 4 * 10 + 2 * (2 * 16 + 3 * 4),
-    "bwd": 4 * 10 + 2 * (2 * 16 + 2 * 4) + 2,
-}
 # operations per neighbour of a valid voxel in one sweep, the least the
 # function needs: csrc/correct_sdf_dense.cu folds the sign test and the min
 # with the best into one integer min of the neighbour's bits (the class's
@@ -220,29 +213,6 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cold_ms(fn, reps: int = 20) -> float:
-    """Median ms of one call of `fn` with the L2 cache flushed before it (a
-    256 MB buffer, five times the H100's 50 MB L2, written between calls):
-    the time against HBM of inputs that back-to-back calls would find in
-    L2. The flush is queued ahead of each call, so the launch gap hides
-    behind it."""
-    import torch
-
-    flush = torch.empty(2**26, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def graph_ms(fn, reps: int = 20) -> float:
     """Mean device ms per call of `fn`: `reps` calls captured in one CUDA
     graph and replayed, so no host launch gap enters the time."""
@@ -267,33 +237,80 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def needed_bytes(images, m: int, n_act: int, out_bytes: int, act_in_bytes: int = 12) -> int:
-    """Bytes a masked per-element sampler must move: every element's 4 B
-    `active` flag and its `out_bytes` of output, the `act_in_bytes` of index,
-    coordinate (and cotangent) arrays of the active elements only (an
-    inactive element needs nothing else), and the image stack once."""
-    return m * (4 + out_bytes) + n_act * act_in_bytes + images.numel() * images.element_size()
-
-
-def capture_first_call(module, name: str, store: dict):
-    """Wrap `module.name` so its first call's arguments are kept (cloned)."""
+def capture_first_call(module, name: str, store: dict, key: str = "", when=None, to_host: bool = False):
+    """Wrap `module.name` so the arguments of its first call (for which
+    `when(args)` holds, when given) are kept (cloned; with `to_host`, copied
+    to the host, so they take no device memory, and the copy's seconds added
+    to `store["capture_s"]`) under `key` (default `name`)."""
     import torch
 
     orig = getattr(module, name)
+    key = key or name
 
     def wrapper(*args):
-        if name not in store:
-            store[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+        if key not in store and (when is None or when(args)):
+            if to_host:
+                t0 = time.perf_counter()
+                store[key] = tuple(a.detach().cpu() if torch.is_tensor(a) else a for a in args)
+                store["capture_s"] = store.get("capture_s", 0.0) + time.perf_counter() - t0
+            else:
+                store[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
         return orig(*args)
 
     setattr(module, name, wrapper)
     return lambda: setattr(module, name, orig)
+
+
+def value_call(args) -> bool:
+    """A `bicubic_rows` call that launches K1a (no derivative wanted)."""
+    return not (args[2].requires_grad or args[3].requires_grad)
+
+
+def sampler_figures(kernel: str, inputs) -> dict:
+    """K1a (`bicubic_rows_fwd`) or K2 (`nearest_rows`) on `inputs`: held
+    against its plain version (K1a rtol 1e-5 with atol 1e-5 x max; K2
+    `torch.equal`), timed in a CUDA graph, from Python and L2-flushed, its
+    bound and its active share."""
+    import torch
+
+    from intrinsic3d_torch.ops import bicubic, profile_sampler
+    from intrinsic3d_torch.ops.roofline import BICUBIC_OPS, bound, cold_ms, needed_bytes
+
+    images, fid, a, b, active = inputs
+    m = active.shape[0]
+    n_act = int((active > 0).sum())
+    entry = profile_sampler.entry_launcher(kernel)
+    got = entry(*inputs)
+    if kernel == "bicubic_rows_fwd":
+        want = bicubic.bicubic_rows_plain(images, fid, a, b, active)[0]
+        plain = lambda: bicubic.bicubic_rows_plain(images, fid, a, b, active)  # noqa: E731
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{kernel}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+        abs_err = float((got - want).abs().max())
+        b_ms, b_by = bound(needed_bytes(images, m, n_act, 4), n_act * BICUBIC_OPS["fwd"])
+    else:
+        want = bicubic.nearest_rows_plain(images, fid, a, b, active)
+        plain = lambda: bicubic.nearest_rows_plain(images, fid, a, b, active)  # noqa: E731
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{kernel} differs from its plain version")
+        abs_err = 0.0
+        b_ms, b_by = bound(needed_bytes(images, m, n_act, 4), 0)
+    kernel_fn = lambda: entry(*inputs)  # noqa: E731
+    rec = dict(elements=m, active=n_act, active_share=n_act / max(m, 1), max_abs_err=abs_err,
+               ms=graph_ms(kernel_fn), call_ms=cuda_ms(kernel_fn), cold_ms=cold_ms(kernel_fn),
+               plain_ms=graph_ms(plain, 20 if m < 2**25 else 3), bound_ms=b_ms, bound_by=b_by)
+    rec["pct_of_bound"] = 100 * b_ms / rec["cold_ms"]
+    return rec
+
+
+def sampler_line(rec: dict) -> str:
+    return (f"M={rec['elements']} active={rec['active']} ({100 * rec['active_share']:.1f}%) "
+            f"max_abs_err={rec['max_abs_err']:.3e} ms={rec['ms']:.4f} call_ms={rec['call_ms']:.4f} "
+            f"cold_ms={rec['cold_ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+            f"({rec['bound_by']}) pct_of_bound={rec['pct_of_bound']:.1f}")
 
 
 def check_kernels(captured: dict) -> list:
@@ -301,6 +318,7 @@ def check_kernels(captured: dict) -> list:
     import torch
 
     from intrinsic3d_torch.ops import bicubic
+    from intrinsic3d_torch.ops.roofline import BICUBIC_OPS, bound, cold_ms, needed_bytes
 
     records = []
     images, fid, x, y, active = captured["bicubic_rows"]
@@ -312,61 +330,43 @@ def check_kernels(captured: dict) -> list:
     out = bicubic.bicubic_rows(images, fid, xg, yg, active)
     gx, gy = torch.autograd.grad(out, (xg, yg), grad_outputs=torch.ones_like(out))
     out = out.detach()
-    fwd = bicubic.bicubic_rows(images, fid, x, y, active)
     torch.cuda.synchronize()
+    pairs = [(out, val_p), (gx, ddx_p), (gy, ddy_p)]
+    for got, want in pairs:
+        if not torch.isfinite(got).all():
+            fail("bicubic_rows_fwdgrad: non-finite output")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in pairs)
+    kernel = lambda: bicubic._launch_bicubic(images, fid, x, y, active, True)  # noqa: E731
+    ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
+    plain_ms = graph_ms(lambda: bicubic.bicubic_rows_plain(images, fid, x, y, active))
+    b_ms, b_by = bound(needed_bytes(images, m, n_act, 12), n_act * BICUBIC_OPS["fwdgrad"])
+    log(f"  bicubic_rows_fwdgrad: M={m} active={n_act} ({100 * n_act / max(m, 1):.1f}%) max_abs_err={abs_err:.3e} "
+        f"max_rel_err={rel:.3e} ms={ms:.4f} call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) pct_of_bound={100 * b_ms / l2_cold_ms:.1f}")
+    records.append(dict(
+        name="bicubic_rows_fwdgrad", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
+        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:490", elements=m, active=n_act, max_abs_err=abs_err,
+        ms=ms, call_ms=call_ms, cold_ms=l2_cold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        pct_of_bound=100 * b_ms / l2_cold_ms, library_ms=None,
+    ))
 
-    def errs(pairs):
-        abs_err = max(float((a - b).abs().max()) for a, b in pairs)
-        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in pairs)
-        return abs_err, rel
-
-    for tag, pairs in (("fwdgrad", [(out, val_p), (gx, ddx_p), (gy, ddy_p)]), ("fwd", [(fwd, val_p)])):
-        for got, want in pairs:
-            if not torch.isfinite(got).all():
-                fail(f"bicubic_rows_{tag}: non-finite output")
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-        abs_err, rel = errs(pairs)
-        with_grad = tag == "fwdgrad"
-        kernel = lambda: bicubic._launch_bicubic(images, fid, x, y, active, with_grad)  # noqa: E731
-        ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
-        plain_ms = graph_ms(lambda: bicubic.bicubic_rows_plain(images, fid, x, y, active))
-        b_ms, b_by = bound(needed_bytes(images, m, n_act, 12 if with_grad else 4), n_act * BICUBIC_OPS[tag])
-        log(f"  bicubic_rows_{tag}: M={m} active={n_act} max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
-            f"ms={ms:.4f} call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
-        records.append(dict(
-            name=f"bicubic_rows_{tag}", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
-            replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:" + ("490" if with_grad else "473"),
-            elements=m, active=n_act, max_abs_err=abs_err, ms=ms, call_ms=call_ms, cold_ms=l2_cold_ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ))
+    rec = sampler_figures("bicubic_rows_fwd", (images, fid, x, y, active))
+    log(f"  bicubic_rows_fwd: {sampler_line(rec)}")
+    records.append(dict(name="bicubic_rows_fwd", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
+                        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:473", **rec, library_ms=None))
 
     depths, fid, yi, xi, active = captured["nearest_rows"]
-    m = active.shape[0]
-    n_act = int((active > 0).sum())
-    got = bicubic.nearest_rows(depths, fid, yi, xi, active)
-    want = bicubic.nearest_rows_plain(depths, fid, yi, xi, active)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("nearest_rows differs from its plain version")
+    rec = sampler_figures("nearest_rows", captured["nearest_rows"])
     # the yardstick: PyTorch's advanced-index gather (int32 indices), masked
     lib = lambda: depths[fid, yi, xi] * (active > 0)  # noqa: E731
-    if not torch.equal(lib(), want):
+    if not torch.equal(lib(), bicubic.nearest_rows_plain(depths, fid, yi, xi, active)):
         fail("nearest_rows yardstick differs")
-    kernel = lambda: bicubic._launch_nearest(depths, fid, yi, xi, active)  # noqa: E731
-    ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
-    plain_ms = graph_ms(lambda: bicubic.nearest_rows_plain(depths, fid, yi, xi, active))
-    library_ms = graph_ms(lib)
-    b_ms, b_by = bound(needed_bytes(depths, m, n_act, 4), 0)
-    log(f"  nearest_rows: M={m} active={n_act} max_abs_err=0 ms={ms:.4f} "
-        f"call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by})")
-    records.append(dict(
-        name="nearest_rows", route="cuda", source="intrinsic3d_torch/csrc/nearest_rows.cu",
-        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:690", elements=m, active=n_act, max_abs_err=0.0, ms=ms,
-        call_ms=call_ms, cold_ms=l2_cold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms,
-    ))
+    rec["library_ms"] = graph_ms(lib)
+    log(f"  nearest_rows: {sampler_line(rec)} library_ms={rec['library_ms']:.4f}")
+    records.append(dict(name="nearest_rows", route="cuda", source="intrinsic3d_torch/csrc/nearest_rows.cu",
+                        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:690", **rec))
     return records
 
 
@@ -405,6 +405,7 @@ def check_sampler_sample(rows_inputs) -> list:
     import torch
 
     from intrinsic3d_torch.ops import bicubic
+    from intrinsic3d_torch.ops.roofline import BICUBIC_OPS, bound, cold_ms, needed_bytes
 
     images, fid, x, y, active = rows_inputs
     m = x.shape[0]
@@ -481,6 +482,7 @@ def check_distance_transform(window_inputs) -> dict:
 
     from intrinsic3d_torch.ops import build
     from intrinsic3d_torch.ops import distance_transform as dt
+    from intrinsic3d_torch.ops.roofline import bound, cold_ms
 
     sdf, weight, voxel, iters = window_inputs
     out = {}
@@ -625,7 +627,8 @@ def small_fusion_agrees() -> None:
 PIPELINE_SCHEDULE = [(2, 2), (2, 1), (2, 0), (1, 0), (0, 0)]
 
 
-def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: bool = False) -> dict:
+def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: bool = False,
+                   capture_samplers: bool = False) -> dict:
     """`Intrinsic3D.refine` of `fused` on the card (stage 3 of
     bench_pipeline.py: 3 grid levels × 3 pyramid levels, 10 outer iterations
     each) from the sensor's `initial` poses and camera, with the launch
@@ -633,27 +636,46 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     size, plan, iteration times, costs, tries, mu and peak memory, and the
     phase seconds; writes them to chiprun_out/<tag>_levels.json. With
     `capture_levels`, every level's `optimize_level` arguments are kept
-    under `inputs` (references only: nothing is copied)."""
+    under `inputs` (references only: nothing is copied). With
+    `capture_samplers`, a host copy of the inputs of each level's first K1a
+    and K2 call inside `optimize_level` is kept under `sampler_calls`, one
+    dict a level, with the level's launches of every kernel (`launches`)
+    and the copy's seconds (`capture_s`, inside `total_s`; the levels' peak
+    memory holds none of it)."""
     import torch
 
+    from intrinsic3d_torch import observations
     from intrinsic3d_torch.ops import build
-    from intrinsic3d_torch.refine import intrinsic3d
+    from intrinsic3d_torch.refine import intrinsic3d, residuals
     from intrinsic3d_torch.synthetic import PIPELINE_CG_ITERS, PIPELINE_REFINEMENT
 
     poses, cam = initial
     for i, pose in enumerate(poses):
         sensor.set_pose(i, pose)
     sensor.color_cam = cam
-    levels, stats, inputs = [], {}, []
+    levels, stats, inputs, sampler_calls = [], {}, [], []
     real = intrinsic3d.optimize_level
 
     def keep_inputs(grid, *args, **kw):
         # `refine` writes the refined fields and colours back into the
         # level's grid afterwards: keep the grid the level started from
-        inputs.append(((copy.deepcopy(grid), *args), kw))
-        return real(grid, *args, **kw)
+        if capture_levels:
+            inputs.append(((copy.deepcopy(grid), *args), kw))
+        if not capture_samplers:
+            return real(grid, *args, **kw)
+        calls, before = {}, dict(build.LAUNCHES)
+        sampler_calls.append(calls)
+        restore = [capture_first_call(residuals, "bicubic_rows", calls, key="bicubic_rows_fwd", when=value_call,
+                                      to_host=True),
+                   capture_first_call(observations, "nearest_rows", calls, to_host=True)]
+        try:
+            return real(grid, *args, **kw)
+        finally:
+            for r in restore:
+                r()
+            calls["launches"] = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
 
-    if capture_levels:
+    if capture_levels or capture_samplers:
         intrinsic3d.optimize_level = keep_inputs
     try:
         torch.cuda.synchronize()
@@ -670,8 +692,10 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     finally:
         intrinsic3d.optimize_level = real
 
+    capture_s = sum(calls.get("capture_s", 0.0) for calls in sampler_calls)
     log(f"phase {tag}: {len(keyframes)} keyframes, fused {fused.num_voxels} voxels -> refined "
-        f"{refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s")
+        f"{refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s"
+        + (f" ({capture_s:.3f}s of it the host copies of the sampler inputs)" if capture_samplers else ""))
     records = []
     for g, p, nvox, st in levels:
         per_el = st.peak_bytes / st.elements
@@ -691,7 +715,35 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     (REPO / "chiprun_out").mkdir(exist_ok=True)
     (REPO / "chiprun_out" / f"{tag}_levels.json").write_text(json.dumps(
         dict(total_s=total_s, phases=stats, levels=records, launches=launches), indent=1))
-    return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial)
+    return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial,
+                sampler_calls=sampler_calls)
+
+
+def check_levels(run: dict) -> dict:
+    """K1a and K2 on the first inputs each level of the pipeline refinement
+    handed them (`sampler_figures` on the card, each level's line printed):
+    per kernel the list of level records, with the level's launches, and
+    the main-path total: the sum over levels of launches at the level x
+    L2-flushed ms."""
+    import torch
+
+    out = {}
+    for kernel in ("bicubic_rows_fwd", "nearest_rows"):
+        recs, total, in_levels = [], 0.0, 0
+        for lv, calls in zip(run["levels"], run["sampler_calls"]):
+            if kernel not in calls:
+                fail(f"level {lv['level']} made no {kernel} call inside optimize_level")
+            inputs = tuple(a.cuda() if torch.is_tensor(a) else a for a in calls.pop(kernel))
+            rec = dict(level=lv["level"], launches=calls["launches"][kernel], **sampler_figures(kernel, inputs))
+            del inputs
+            log(f"  level {lv['level']} {kernel}: launches={rec['launches']} {sampler_line(rec)}")
+            total += rec["launches"] * rec["cold_ms"]
+            in_levels += rec["launches"]
+            recs.append(rec)
+        log(f"  {kernel} on the main path: {in_levels} launches inside the levels (of {run['launches'][kernel]} in "
+            f"the refinement), sum of launches x L2-flushed ms {total:.4f} ms")
+        out[kernel] = dict(levels=recs, main_path_ms=total, launches_in_levels=in_levels)
+    return out
 
 
 def level_starts_to_host(inputs) -> list:
@@ -914,16 +966,20 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
 def refinement_phase(fusion: dict) -> dict:
     """Stage 3 of bench_pipeline.py on the card from the 30-frame fused grid
     (`run_refinement`): fails unless `check_refinement`'s bars hold and every
-    level plans dense. Returns the launches, the per-level records and the
-    levels' recorded `optimize_level` inputs (`inputs`)."""
+    level plans dense, and holds K1a and K2 against their plain versions on
+    each level's first inputs (`check_levels`). Returns the launches, the
+    per-level records, the levels' recorded `optimize_level` inputs
+    (`inputs`) and the per-level sampler records (`sampler_levels`)."""
     from intrinsic3d_torch.synthetic import PIPELINE_DATASET
 
     run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"],
-                         capture_levels=True)
+                         capture_levels=True, capture_samplers=True)
     for r in run["levels"]:
         if not r["reason"].startswith("dense"):
             fail(f"level {r['level']} was planned '{r['reason']}', not dense")
     check_refinement(run, fusion["sensor"], fusion["keyframes"], PIPELINE_DATASET)
+    run["sampler_levels"] = check_levels(run)
+    del run["sampler_calls"]
     return run
 
 
@@ -1695,6 +1751,8 @@ def main() -> int:
     refinement = refinement_phase(fusion)
     for r in records:
         r["launches_pipeline_refinement"] = refinement["launches"][r["name"]]
+        if r["name"] in refinement["sampler_levels"]:
+            r.update(refinement["sampler_levels"][r["name"]])
     window_inputs, fusion_launches = fusion["window"], fusion["launches"]
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
 

@@ -1,12 +1,14 @@
 // Masked Catmull-Rom bicubic sampling of a [K, H, W] float32 image stack at
-// per-element (fid, x, y), in three modes: the value (VALUE); the value and
-// the two directional derivatives d/dx and d/dy (VALUE_GRAD); and, given a
-// per-element cotangent g, g*d/dx and g*d/dy without the value (BACKWARD).
+// per-element (fid, x, y), in three modes: the value (BicubicValueOp over
+// the element stream of rows_common.cuh); the value and the two directional
+// derivatives d/dx and d/dy (bicubic_rows_kernel<VALUE_GRAD>); and, given a
+// per-element cotangent g, g*d/dx and g*d/dy without the value
+// (bicubic_rows_kernel<BACKWARD>).
 //
 // Replaces the Pallas TPU kernels of intrinsic3d_tpu/ops/pallas/bicubic.py:
 //   _win_fwd_kernel     (called from _call_fwd,     the primal of bicubic_sample_rows)
 //   _win_fwdgrad_kernel (called from _call_fwdgrad, its vjp forward rule _rows_fwd_rule)
-//   _fwd_kernel         (called from _fwd, the primal of bicubic_sample): VALUE
+//   _fwd_kernel         (called from _fwd, the primal of bicubic_sample): the value
 //   _bwd_kernel         (called from _bwd, its vjp backward rule): BACKWARD,
 //                       which recomputes the taps instead of storing the
 //                       derivatives in the forward, as _bwd does
@@ -28,12 +30,33 @@
 // (value) or 110-125 (with derivatives) float operations per active element
 // are far below the card's float32 rate.
 //
-// Design: one thread per element; the per-element arrays are read and written
-// coalesced (neighbouring threads, neighbouring addresses); inactive elements
-// read only their `active` flag and write zeros.
+// What held the first design of the value mode back (one thread per
+// element, 256-thread blocks): each thread made one 4-byte load per
+// dependent step (flag, then coordinates, then taps, then store), so with a
+// cold L2 about 1 MB was in flight per step where the card needs ~3 MB; it
+// ran at 50% of its bound on the benchmark's input (PERF.md, with cold L2).
+// The main path's value calls are 0.1-7% active, in long inactive runs, so
+// they mostly stream flags and zeros.
+//
+// Design. The value (the main path's LM cost and creation probe) runs the
+// element stream of rows_common.cuh with BicubicValueOp and V = 4 elements
+// a thread: one 16-byte vector load of the flags, then, unless all four are
+// inactive, the fid, x and y vectors before any is used, then element by
+// element the 16 taps of each active one issued together, and one vector
+// store. Its arithmetic is the first kernel's to the bit: the same
+// catrom_w, the same fmaf order (rows, then columns), the same fminf/fmaxf
+// clip (a NaN coordinate samples the clip corner). A persistent bulk-copy
+// kernel, 8 elements a thread, 2 groups of 4 a thread, 16-byte tap loads and
+// all four elements' 64 taps issued at once were built and measured beside
+// it and lost on the main path's inputs (PERF.md §6). On all-active input
+// the 16 scalar tap loads an element, not the bytes, limit it (about half of
+// the bound at any size). VALUE_GRAD and BACKWARD keep the first kernel
+// (bicubic_rows_kernel, whose value-only mode went with the redesign): one
+// thread per element; the per-element arrays are
+// read and written coalesced; inactive elements read only their `active`
+// flag and write zeros.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rows_common.cuh"
 
 namespace {
 
@@ -54,7 +77,53 @@ __device__ __forceinline__ void catrom_dw(float t, float w[4]) {
   w[3] = -t + 1.5f * t2;
 }
 
-enum Mode { VALUE = 0, VALUE_GRAD = 1, BACKWARD = 2 };
+// The value through the element stream, element for element the arithmetic
+// of the first kernel's value-only mode: catrom_w, then the fmaf order of
+// bicubic_rows_kernel's value (rows, then columns)
+struct BicubicValueOp {
+  struct Params {
+    const float* images;
+    int h, w;
+  };
+  template <int V>
+  __device__ static __forceinline__ void eval(const Params& p, const float (&act)[V], const uint32_t (&fid)[V],
+                                              const uint32_t (&xs)[V], const uint32_t (&ys)[V], float (&o)[V]) {
+    // the clip bounds as float32, the same rounding as the Python side
+    const float xmax = (float)((double)p.w - 2.001);
+    const float ymax = (float)((double)p.h - 2.001);
+    // one element after another, each active element's 16 taps issued
+    // together: 40 registers, where issuing all V elements' taps at once
+    // took 48-64 and fewer blocks an SM (PERF.md §6)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float val = 0.0f;
+      if (act[v] > 0.0f) {
+        const float xc = fminf(fmaxf(__uint_as_float(xs[v]), 1.0f), xmax);
+        const float yc = fminf(fmaxf(__uint_as_float(ys[v]), 1.0f), ymax);
+        const float x0f = floorf(xc);
+        const float y0f = floorf(yc);
+        float wx[4], wy[4];
+        catrom_w(xc - x0f, wx);
+        catrom_w(yc - y0f, wy);
+        const float* tap =
+            p.images + ((int64_t)(int32_t)fid[v] * p.h + ((int)y0f - 1)) * (int64_t)p.w + ((int)x0f - 1);
+        float t[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) t[k] = __ldg(tap + (int64_t)(k / 4) * p.w + (k % 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float r = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) r = fmaf(wx[i], t[4 * j + i], r);
+          val = fmaf(wy[j], r, val);
+        }
+      }
+      o[v] = val;
+    }
+  }
+};
+
+enum Mode { VALUE_GRAD = 1, BACKWARD = 2 };
 
 template <int MODE>
 __global__ void bicubic_rows_kernel(const float* __restrict__ images,
@@ -68,7 +137,6 @@ __global__ void bicubic_rows_kernel(const float* __restrict__ images,
                                     float* __restrict__ ddy,
                                     int64_t m, int h, int w) {
   constexpr bool WITH_VAL = MODE != BACKWARD;
-  constexpr bool WITH_GRAD = MODE != VALUE;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= m) return;
   float val = 0.0f, gx = 0.0f, gy = 0.0f;
@@ -87,10 +155,8 @@ __global__ void bicubic_rows_kernel(const float* __restrict__ images,
     float wx[4], wy[4], dwx[4], dwy[4];
     catrom_w(xc - x0f, wx);
     catrom_w(yc - y0f, wy);
-    if (WITH_GRAD) {
-      catrom_dw(xc - x0f, dwx);
-      catrom_dw(yc - y0f, dwy);
-    }
+    catrom_dw(xc - x0f, dwx);
+    catrom_dw(yc - y0f, dwy);
     const float* tap = images +
                        ((int64_t)__ldg(fid + e) * h + ((int)y0f - 1)) * (int64_t)w +
                        ((int)x0f - 1);
@@ -102,29 +168,23 @@ __global__ void bicubic_rows_kernel(const float* __restrict__ images,
       for (int i = 0; i < 4; ++i) {
         const float v = __ldg(row + i);
         r = fmaf(wx[i], v, r);
-        if (WITH_GRAD) rd = fmaf(dwx[i], v, rd);
+        rd = fmaf(dwx[i], v, rd);
       }
       if (WITH_VAL) val = fmaf(wy[j], r, val);
-      if (WITH_GRAD) {
-        gx = fmaf(wy[j], rd, gx);
-        gy = fmaf(dwy[j], r, gy);
-      }
+      gx = fmaf(wy[j], rd, gx);
+      gy = fmaf(dwy[j], r, gy);
     }
-    if (WITH_GRAD) {
-      if (MODE == BACKWARD) {
-        const float ge = __ldg(g + e);
-        gx *= ge;
-        gy *= ge;
-      }
-      if (!(xe >= 1.0f && xe < xmax)) gx = 0.0f;
-      if (!(ye >= 1.0f && ye < ymax)) gy = 0.0f;
+    if (MODE == BACKWARD) {
+      const float ge = __ldg(g + e);
+      gx *= ge;
+      gy *= ge;
     }
+    if (!(xe >= 1.0f && xe < xmax)) gx = 0.0f;
+    if (!(ye >= 1.0f && ye < ymax)) gy = 0.0f;
   }
   if (WITH_VAL) out[e] = val;
-  if (WITH_GRAD) {
-    ddx[e] = gx;
-    ddy[e] = gy;
-  }
+  ddx[e] = gx;
+  ddy[e] = gy;
 }
 
 }  // namespace
@@ -135,20 +195,21 @@ extern "C" int i3d_bicubic_rows(const void* images, const void* fid, const void*
                                 const void* y, const void* active, void* out, void* ddx,
                                 void* ddy, long long m, int h, int w, int with_grad,
                                 void* stream) {
-  if (m <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((m + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   if (with_grad) {
+    if (m <= 0) return (int)cudaSuccess;
+    const int threads = 256;
+    const unsigned int blocks = (unsigned int)((m + threads - 1) / threads);
     bicubic_rows_kernel<VALUE_GRAD><<<blocks, threads, 0, s>>>(
         (const float*)images, (const int32_t*)fid, (const float*)x, (const float*)y,
         (const float*)active, nullptr, (float*)out, (float*)ddx, (float*)ddy, (int64_t)m, h, w);
-  } else {
-    bicubic_rows_kernel<VALUE><<<blocks, threads, 0, s>>>(
-        (const float*)images, (const int32_t*)fid, (const float*)x, (const float*)y,
-        (const float*)active, nullptr, (float*)out, nullptr, nullptr, (int64_t)m, h, w);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return i3d_rows::launch_rows<BicubicValueOp, 4>(
+      {(const float*)images, h, w},
+      {(const float*)active, (const uint32_t*)fid, (const uint32_t*)x, (const uint32_t*)y, (float*)out,
+       (int64_t)m},
+      s);
 }
 
 // The backward of bicubic_sample: dx = g*d/dx, dy = g*d/dy per element.

@@ -10,44 +10,53 @@
 //
 // Bound on the H100: memory traffic. Every element reads its 4 B `active`
 // flag and writes 4 B; only an active one also reads 12 B (fid, yi, xi) and
-// its one image tap, which hits L2 (the depth stack is 2.5 MB at the
-// benchmark's scale against a 50 MB L2). There is no arithmetic to speak of.
+// its one image tap, which hits L2 once the depth stack (2.5 MB at the
+// benchmark's scale) is there. There is no arithmetic to speak of.
 //
-// Design: one thread per element, per-element arrays read and written
-// coalesced; inactive elements read only their `active` flag.
+// What held the first design back (one thread per element, 256-thread
+// blocks): each thread made one 4-byte load per dependent step (flag, then
+// indices, then tap, then store), so with a cold L2 about 1 MB was in flight
+// per step where the card needs ~3 MB. It reached 82% of its bound on large
+// all-active inputs and 38% on the benchmark's (PERF.md, with cold L2).
+//
+// Design: the element stream of rows_common.cuh with V = 4 elements a
+// thread: one 16-byte vector load of the flags, then, unless all four are
+// inactive, the three index vectors before any is used, the four taps
+// together and one vector store. A persistent kernel fed by bulk
+// asynchronous copies into a shared-memory ring, 8 elements a thread and 2
+// groups of 4 a thread were built and measured beside it and lost on every
+// main-path input (PERF.md §6). What remains on small calls is the chain
+// of dependent round trips itself: about 7 us of a cold call whatever its
+// size, more than the bounds of the coarse levels' calls.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rows_common.cuh"
 
 namespace {
 
-__global__ void nearest_rows_kernel(const float* __restrict__ images,
-                                    const int32_t* __restrict__ fid,
-                                    const int32_t* __restrict__ yi,
-                                    const int32_t* __restrict__ xi,
-                                    const float* __restrict__ active,
-                                    float* __restrict__ out, int64_t m, int h, int w) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m) return;
-  float v = 0.0f;
-  if (__ldg(active + e) > 0.0f) {
-    v = __ldg(images + ((int64_t)__ldg(fid + e) * h + __ldg(yi + e)) * (int64_t)w +
-              __ldg(xi + e));
+struct NearestOp {
+  struct Params {
+    const float* images;
+    int h, w;
+  };
+  template <int V>
+  __device__ static __forceinline__ void eval(const Params& p, const float (&act)[V], const uint32_t (&fid)[V],
+                                              const uint32_t (&yi)[V], const uint32_t (&xi)[V], float (&o)[V]) {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      o[v] = act[v] > 0.0f ? __ldg(p.images + ((int64_t)(int32_t)fid[v] * p.h + (int32_t)yi[v]) * (int64_t)p.w +
+                                   (int32_t)xi[v])
+                           : 0.0f;
   }
-  out[e] = v;
-}
+};
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int i3d_nearest_rows(const void* images, const void* fid, const void* yi,
-                                const void* xi, const void* active, void* out, long long m,
-                                int h, int w, void* stream) {
-  if (m <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((m + threads - 1) / threads);
-  nearest_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)images, (const int32_t*)fid, (const int32_t*)yi, (const int32_t*)xi,
-      (const float*)active, (float*)out, (int64_t)m, h, w);
-  return (int)cudaGetLastError();
+extern "C" int i3d_nearest_rows(const void* images, const void* fid, const void* yi, const void* xi,
+                                const void* active, void* out, long long m, int h, int w, void* stream) {
+  return i3d_rows::launch_rows<NearestOp, 4>(
+      {(const float*)images, h, w},
+      {(const float*)active, (const uint32_t*)fid, (const uint32_t*)yi, (const uint32_t*)xi, (float*)out,
+       (int64_t)m},
+      (cudaStream_t)stream);
 }

@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` into
 `build/intrinsic3d_torch/lib<name>.so` at first use (rebuilt when the source
-is newer), then loaded with `ctypes`. Nothing is compiled when a module is
+or a header of `csrc/` is newer), then loaded with `ctypes`. Nothing is compiled when a module is
 imported. `build_all` starts one `nvcc` per source, all at once.
 
 `LAUNCHES` is the one launch-count registry of the ops modules: one entry
@@ -64,8 +64,12 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a header of csrc/."""
     out = lib_path(name)
-    return not out.exists() or out.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return out.stat().st_mtime < newest
 
 
 def build_all(names: Iterable[str] = SOURCES) -> None:

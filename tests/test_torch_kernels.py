@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from intrinsic3d_torch.ops import bicubic, build, distance_transform
+from intrinsic3d_torch.ops import bicubic, build, distance_transform, roofline
 
 NO_LAUNCHES = dict.fromkeys(build.LAUNCHES, 0)
 
@@ -71,6 +71,98 @@ def test_nearest_rows_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, bicubic.nearest_rows_plain(depths, *ints, active), rtol=0, atol=0)
     assert bicubic.LAUNCHES["nearest_rows"] == 1
+
+
+# K1a and K2 through the element stream of csrc/rows_common.cuh: ragged
+# lengths (vector groups and a scalar tail), 512-element inactive runs,
+# storage offsets (only 4-byte aligned: scalar loads)
+STREAM_M = [0, 1, 3, 4, 5, 511, 512, 513, 2**20 + 3]
+
+
+def _stream_problem(kernel, m, seed, offsets=(0, 0, 0, 0), pattern="runs", k=8, h=240, w=320):
+    """K1a (`bicubic_rows_fwd`: fid, x, y, active) or K2 (`nearest_rows`:
+    fid, yi, xi, active) inputs on the card, frame-major in 512-element
+    blocks: every third block wholly inactive and 70% of the rest active
+    (`pattern` "runs"), or none active ("none"). Array i is a view starting
+    `offsets[i]` elements into a larger tensor. K1a's coordinates reach past
+    the frame and include NaNs."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0.3, 5.0, (k, h, w)).astype(np.float32)
+    fid = (np.arange(m) // 512 * k // max(1, -(-m // 512))).astype(np.int32)
+    x = rng.uniform(-3.0, w + 2.0, m).astype(np.float32)
+    y = rng.uniform(-3.0, h + 2.0, m).astype(np.float32)
+    active = (rng.uniform(size=m) < 0.7).astype(np.float32)
+    active[(np.arange(m) // 512) % 3 == 1] = 0.0
+    if pattern == "none":
+        active[:] = 0.0
+    if kernel == "bicubic_rows_fwd":
+        x[::97] = np.nan
+        y[5::89] = np.nan
+        a, b = x, y
+    else:
+        a = np.clip(np.floor(y + 0.5), 0, h - 1).astype(np.int32)
+        b = np.clip(np.floor(x + 0.5), 0, w - 1).astype(np.int32)
+
+    def on_card(arr, off):
+        big = torch.zeros(off + arr.shape[0] + 5, dtype=torch.as_tensor(arr[:0]).dtype, device="cuda")
+        big[off:off + arr.shape[0]] = torch.as_tensor(arr, device="cuda")
+        return big[off:off + arr.shape[0]]
+
+    return (torch.as_tensor(images, device="cuda"),
+            *(on_card(arr, off) for arr, off in zip((fid, a, b, active), offsets)))
+
+
+def _stream_want(kernel, images, fid, a, b, active):
+    """The plain version; K1a's NaN coordinates sample the clip corner."""
+    if kernel == "bicubic_rows_fwd":
+        return bicubic.bicubic_rows_plain(images, fid, torch.nan_to_num(a, nan=1.0), torch.nan_to_num(b, nan=1.0),
+                                          active)[0]
+    return bicubic.nearest_rows_plain(images, fid, a, b, active)
+
+
+def _stream_check(kernel, inputs):
+    """One wrapper call: one launch, and the plain version's output (K2
+    exactly, K1a to float32 rounding, rtol 1e-5)."""
+    bicubic.reset_launches()
+    if kernel == "bicubic_rows_fwd":
+        got = bicubic.bicubic_rows(*inputs)
+    else:
+        got = bicubic.nearest_rows(*inputs)
+    torch.cuda.synchronize()
+    assert bicubic.LAUNCHES == dict(NO_LAUNCHES, **{kernel: 1})
+    want = _stream_want(kernel, *inputs)
+    if kernel == "bicubic_rows_fwd":
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
+    else:
+        assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bicubic_rows_fwd", "nearest_rows"])
+@pytest.mark.parametrize("m", STREAM_M)
+def test_sampler_streams_match_plain_on_ragged_lengths(cuda_device, kernel, m):
+    _stream_check(kernel, _stream_problem(kernel, m, seed=m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bicubic_rows_fwd", "nearest_rows"])
+@pytest.mark.parametrize("offsets", [(1, 1, 1, 1), (2, 2, 2, 2), (3, 3, 3, 3), (1, 0, 3, 2)])
+def test_sampler_streams_take_storage_offsets(cuda_device, kernel, offsets):
+    """Views `t[off:]` of larger tensors, 4-byte aligned only, with the same
+    offset on every input or mixed offsets: the kernel reads them with
+    scalar loads, the output (allocated by the wrapper) being aligned."""
+    for m in (5, 513, 4099):
+        _stream_check(kernel, _stream_problem(kernel, m, seed=m + sum(offsets), offsets=offsets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bicubic_rows_fwd", "nearest_rows"])
+def test_sampler_streams_all_inactive(cuda_device, kernel):
+    for m in (3, 512, 2**20 + 3):
+        got = _stream_check(kernel, _stream_problem(kernel, m, seed=m, pattern="none"))
+        assert torch.equal(got, torch.zeros_like(got))
 
 
 @pytest.mark.cuda
@@ -360,3 +452,18 @@ def test_kernel_sources_and_build_paths():
         assert f"i3d_{name}" in text and "cudaGetLastError" in text
         assert build.lib_path(name).parent == build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_roofline_counts_the_bytes_a_masked_sampler_needs():
+    """Every element's flag and output, the words of the active ones only,
+    the image stack once; the bound is the larger of the byte and the
+    operation times."""
+    images = torch.zeros((2, 3, 5), dtype=torch.float32)
+    assert roofline.needed_bytes(images, 1000, 10, 4) == 1000 * 8 + 10 * 12 + 30 * 4
+    assert roofline.needed_bytes(images, 1000, 10, 8, act_in_bytes=16) == 1000 * 12 + 10 * 16 + 30 * 4
+    ms, by = roofline.bound(3.35e9, 0)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+    ms, by = roofline.bound(0, 67e9)
+    assert by == "operations" and ms == pytest.approx(1.0)
+    # a K1a element's bytes outweigh its operations
+    assert roofline.bound(roofline.needed_bytes(images, 1, 1, 4), roofline.BICUBIC_OPS["fwd"])[1] == "bytes"

@@ -157,6 +157,65 @@ def test_nearest_rows_plain_matches_pallas():
 
 
 # ---------------------------------------------------------------------------
+# K1a and K2 on ragged lengths and inactive runs: the contract the CUDA
+# kernels' element streams must meet (vector groups, a scalar tail,
+# skipped all-inactive groups), pinned on the plain versions
+# ---------------------------------------------------------------------------
+
+RAGGED_CASES = [(m, "runs") for m in (1, 3, 4, 5, 511, 512, 513, 1539)] + [(5, "none"), (1539, "none")]
+
+
+def _ragged_problem(m, pattern, seed, k=3, h=48, w=64):
+    """`m` elements frame-major in 512-element chunks (the Pallas contract);
+    `pattern` "runs": the second chunk wholly inactive and 60% of the rest
+    active, "none": every element inactive. Coordinates reach past both
+    clip bounds."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0.3, 5.0, (k, h, w)).astype(np.float32)
+    fid = (np.arange(m) // 512 % k).astype(np.int32)
+    x = rng.uniform(-2.0, w + 1.0, m).astype(np.float32)
+    y = rng.uniform(-2.0, h + 1.0, m).astype(np.float32)
+    active = (rng.uniform(size=m) < 0.6).astype(np.float32)
+    active[512:1024] = 0.0
+    if pattern == "none":
+        active[:] = 0.0
+    return images, fid, x, y, active
+
+
+def _pad_chunks(m, *arrays):
+    """The arrays padded to whole 512-element chunks (the JAX sampler's
+    callers pad; pad elements repeat the last frame id and are inactive)."""
+    pad = -(-m // 512) * 512 - m
+    return [np.concatenate([a, np.full(pad, a[-1] if i == 0 else 0, a.dtype)]) for i, a in enumerate(arrays)]
+
+
+@pytest.mark.parametrize("m,pattern", RAGGED_CASES)
+def test_bicubic_value_plain_matches_pallas_on_ragged_lengths(m, pattern):
+    images, fid, x, y, active = _ragged_problem(m, pattern, seed=m)
+    padded = _pad_chunks(m, fid, x, y, active)
+    want = np.asarray(jbic.bicubic_sample_rows(jnp.asarray(images), *(jnp.asarray(a) for a in padded)))[:m]
+    got = bicubic.bicubic_rows(_t(images), _t(fid, torch.int32), _t(x), _t(y), _t(active))
+    assert got.shape == (m,)
+    # the Pallas sampler's bf16 hi/lo split dots (as in
+    # test_bicubic_rows_plain_matches_pallas), on images up to 5
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-4)
+    assert np.all(got.numpy()[active == 0] == 0)
+
+
+@pytest.mark.parametrize("m,pattern", RAGGED_CASES)
+def test_nearest_rows_plain_matches_pallas_on_ragged_lengths(m, pattern):
+    images, fid, x, y, active = _ragged_problem(m, pattern, seed=100 + m)
+    h, w = images.shape[1:]
+    yi = np.clip(np.floor(y + 0.5), 0, h - 1).astype(np.int32)
+    xi = np.clip(np.floor(x + 0.5), 0, w - 1).astype(np.int32)
+    want = jbic.nearest_sample_rows(*(jnp.asarray(a) for a in (images, fid, yi, xi, active)))
+    got = bicubic.nearest_rows(_t(images), *(_t(a, torch.int32) for a in (fid, yi, xi)), _t(active))
+    assert got.shape == (m,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=0)
+    np.testing.assert_array_equal(got.numpy(), images[fid, yi, xi] * (active > 0))
+
+
+# ---------------------------------------------------------------------------
 # Elementwise foundations
 # ---------------------------------------------------------------------------
 
