@@ -62,14 +62,14 @@ tries, 12 CG steps):
    dense, no accepted cost rises, every field is finite, the voxel size
    ends at 1 mm, the bicubic and depth-probe kernels launched, and the
    refined SDF meets the analytic sphere's bar. It keeps a host copy of
-   the inputs of each level's first K1a (value sampler) and K2 (depth
-   probe) call inside `optimize_level` (off the card, so the levels' peak
-   memory holds none of it; the copies' seconds are printed) and the
-   level's launches, holds both kernels against their plain versions on
-   them after the run, and prints per level M,
+   the inputs of each level's first K1a (value sampler), K1b (value and
+   derivatives) and K2 (depth probe) call inside `optimize_level` (off the
+   card, so the levels' peak memory holds none of it; the copies' seconds
+   are printed) and the level's launches, holds the three kernels against
+   their plain versions on them after the run, and prints per level M,
    the active share, the times, the bound and the share of the bound, and
    per kernel the sum over levels of launches x L2-flushed ms (the `levels`
-   and `main_path_ms` of the K1a and K2 records).
+   and `main_path_ms` of the K1a, K1b and K2 records).
 
 The multi-device refinement (`intrinsic3d_torch.parallel`, ranks spawned
 by `parallel.dryrun.launch` after the kernels and the native library are
@@ -267,37 +267,40 @@ def value_call(args) -> bool:
 
 
 def sampler_figures(kernel: str, inputs) -> dict:
-    """K1a (`bicubic_rows_fwd`) or K2 (`nearest_rows`) on `inputs`: held
-    against its plain version (K1a rtol 1e-5 with atol 1e-5 x max; K2
-    `torch.equal`), timed in a CUDA graph, from Python and L2-flushed, its
-    bound and its active share."""
+    """K1a (`bicubic_rows_fwd`), K1b (`bicubic_rows_fwdgrad`) or K2
+    (`nearest_rows`) on `inputs`: held against its plain version (K1a's
+    value and K1b's value, ddx and ddy finite and within rtol 1e-5 with atol
+    1e-5 x max; K2 `torch.equal`), timed in a CUDA graph, from Python and
+    L2-flushed, its bound and its active share."""
     import torch
 
     from intrinsic3d_torch.ops import bicubic, profile_sampler
-    from intrinsic3d_torch.ops.roofline import BICUBIC_OPS, bound, cold_ms, needed_bytes
+    from intrinsic3d_torch.ops.roofline import bound, cold_ms, needed_bytes
 
     images, fid, a, b, active = inputs
     m = active.shape[0]
     n_act = int((active > 0).sum())
     entry = profile_sampler.entry_launcher(kernel)
     got = entry(*inputs)
-    if kernel == "bicubic_rows_fwd":
-        want = bicubic.bicubic_rows_plain(images, fid, a, b, active)[0]
-        plain = lambda: bicubic.bicubic_rows_plain(images, fid, a, b, active)  # noqa: E731
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"{kernel}: non-finite output")
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-        abs_err = float((got - want).abs().max())
-        b_ms, b_by = bound(needed_bytes(images, m, n_act, 4), n_act * BICUBIC_OPS["fwd"])
-    else:
-        want = bicubic.nearest_rows_plain(images, fid, a, b, active)
+    if kernel == "nearest_rows":
         plain = lambda: bicubic.nearest_rows_plain(images, fid, a, b, active)  # noqa: E731
+        want = plain()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"{kernel} differs from its plain version")
         abs_err = 0.0
-        b_ms, b_by = bound(needed_bytes(images, m, n_act, 4), 0)
+    else:
+        plain = lambda: bicubic.bicubic_rows_plain(images, fid, a, b, active)  # noqa: E731
+        want = plain()
+        pairs = list(zip(got, want)) if kernel == "bicubic_rows_fwdgrad" else [(got, want[0])]
+        torch.cuda.synchronize()
+        for g, w in pairs:
+            if not torch.isfinite(g).all():
+                fail(f"{kernel}: non-finite output")
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+        abs_err = max(float((g - w).abs().max()) for g, w in pairs)
+    b_ms, b_by = bound(needed_bytes(images, m, n_act, profile_sampler.OUT_BYTES[kernel]),
+                       n_act * profile_sampler.OPS[kernel])
     kernel_fn = lambda: entry(*inputs)  # noqa: E731
     rec = dict(elements=m, active=n_act, active_share=n_act / max(m, 1), max_abs_err=abs_err,
                ms=graph_ms(kernel_fn), call_ms=cuda_ms(kernel_fn), cold_ms=cold_ms(kernel_fn),
@@ -318,41 +321,24 @@ def check_kernels(captured: dict) -> list:
     import torch
 
     from intrinsic3d_torch.ops import bicubic
-    from intrinsic3d_torch.ops.roofline import BICUBIC_OPS, bound, cold_ms, needed_bytes
 
     records = []
-    images, fid, x, y, active = captured["bicubic_rows"]
-    m = x.shape[0]
-    n_act = int((active > 0).sum())
-    val_p, ddx_p, ddy_p = bicubic.bicubic_rows_plain(images, fid, x, y, active)
-
+    rows_inputs = captured["bicubic_rows"]
+    rec = sampler_figures("bicubic_rows_fwdgrad", rows_inputs)
+    # the wrapper's autograd rule: a unit cotangent gives back K1b's own
+    # derivatives, bit for bit
+    images, fid, x, y, active = rows_inputs
     xg, yg = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
     out = bicubic.bicubic_rows(images, fid, xg, yg, active)
-    gx, gy = torch.autograd.grad(out, (xg, yg), grad_outputs=torch.ones_like(out))
-    out = out.detach()
-    torch.cuda.synchronize()
-    pairs = [(out, val_p), (gx, ddx_p), (gy, ddy_p)]
-    for got, want in pairs:
-        if not torch.isfinite(got).all():
-            fail("bicubic_rows_fwdgrad: non-finite output")
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-    abs_err = max(float((a - b).abs().max()) for a, b in pairs)
-    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in pairs)
-    kernel = lambda: bicubic._launch_bicubic(images, fid, x, y, active, True)  # noqa: E731
-    ms, call_ms, l2_cold_ms = graph_ms(kernel), cuda_ms(kernel), cold_ms(kernel)
-    plain_ms = graph_ms(lambda: bicubic.bicubic_rows_plain(images, fid, x, y, active))
-    b_ms, b_by = bound(needed_bytes(images, m, n_act, 12), n_act * BICUBIC_OPS["fwdgrad"])
-    log(f"  bicubic_rows_fwdgrad: M={m} active={n_act} ({100 * n_act / max(m, 1):.1f}%) max_abs_err={abs_err:.3e} "
-        f"max_rel_err={rel:.3e} ms={ms:.4f} call_ms={call_ms:.4f} cold_ms={l2_cold_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}) pct_of_bound={100 * b_ms / l2_cold_ms:.1f}")
-    records.append(dict(
-        name="bicubic_rows_fwdgrad", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
-        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:490", elements=m, active=n_act, max_abs_err=abs_err,
-        ms=ms, call_ms=call_ms, cold_ms=l2_cold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        pct_of_bound=100 * b_ms / l2_cold_ms, library_ms=None,
-    ))
+    grads = torch.autograd.grad(out, (xg, yg), grad_outputs=torch.ones_like(out))
+    if not all(torch.equal(a, b) for a, b in zip((out.detach(), *grads),
+                                                  bicubic._launch_bicubic(images, fid, x, y, active, True))):
+        fail("bicubic_rows' autograd differs from the K1b kernel's outputs")
+    log(f"  bicubic_rows_fwdgrad: {sampler_line(rec)}")
+    records.append(dict(name="bicubic_rows_fwdgrad", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
+                        replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:490", **rec, library_ms=None))
 
-    rec = sampler_figures("bicubic_rows_fwd", (images, fid, x, y, active))
+    rec = sampler_figures("bicubic_rows_fwd", rows_inputs)
     log(f"  bicubic_rows_fwd: {sampler_line(rec)}")
     records.append(dict(name="bicubic_rows_fwd", route="cuda", source="intrinsic3d_torch/csrc/bicubic_rows.cu",
                         replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:473", **rec, library_ms=None))
@@ -637,9 +623,9 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     phase seconds; writes them to chiprun_out/<tag>_levels.json. With
     `capture_levels`, every level's `optimize_level` arguments are kept
     under `inputs` (references only: nothing is copied). With
-    `capture_samplers`, a host copy of the inputs of each level's first K1a
-    and K2 call inside `optimize_level` is kept under `sampler_calls`, one
-    dict a level, with the level's launches of every kernel (`launches`)
+    `capture_samplers`, a host copy of the inputs of each level's first K1a,
+    K1b and K2 call inside `optimize_level` is kept under `sampler_calls`,
+    one dict a level, with the level's launches of every kernel (`launches`)
     and the copy's seconds (`capture_s`, inside `total_s`; the levels' peak
     memory holds none of it)."""
     import torch
@@ -667,11 +653,13 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
         sampler_calls.append(calls)
         restore = [capture_first_call(residuals, "bicubic_rows", calls, key="bicubic_rows_fwd", when=value_call,
                                       to_host=True),
+                   capture_first_call(residuals, "bicubic_rows", calls, key="bicubic_rows_fwdgrad",
+                                      when=lambda args: not value_call(args), to_host=True),
                    capture_first_call(observations, "nearest_rows", calls, to_host=True)]
         try:
             return real(grid, *args, **kw)
         finally:
-            for r in restore:
+            for r in reversed(restore):  # the second wrapper of bicubic_rows wraps the first
                 r()
             calls["launches"] = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
 
@@ -720,15 +708,15 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
 
 
 def check_levels(run: dict) -> dict:
-    """K1a and K2 on the first inputs each level of the pipeline refinement
-    handed them (`sampler_figures` on the card, each level's line printed):
-    per kernel the list of level records, with the level's launches, and
-    the main-path total: the sum over levels of launches at the level x
-    L2-flushed ms."""
+    """K1a, K1b and K2 on the first inputs each level of the pipeline
+    refinement handed them (`sampler_figures` on the card, each level's line
+    printed): per kernel the list of level records, with the level's
+    launches, and the main-path total: the sum over levels of launches at
+    the level x L2-flushed ms."""
     import torch
 
     out = {}
-    for kernel in ("bicubic_rows_fwd", "nearest_rows"):
+    for kernel in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
         recs, total, in_levels = [], 0.0, 0
         for lv, calls in zip(run["levels"], run["sampler_calls"]):
             if kernel not in calls:
@@ -966,10 +954,10 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
 def refinement_phase(fusion: dict) -> dict:
     """Stage 3 of bench_pipeline.py on the card from the 30-frame fused grid
     (`run_refinement`): fails unless `check_refinement`'s bars hold and every
-    level plans dense, and holds K1a and K2 against their plain versions on
-    each level's first inputs (`check_levels`). Returns the launches, the
-    per-level records, the levels' recorded `optimize_level` inputs
-    (`inputs`) and the per-level sampler records (`sampler_levels`)."""
+    level plans dense, and holds K1a, K1b and K2 against their plain
+    versions on each level's first inputs (`check_levels`). Returns the
+    launches, the per-level records, the levels' recorded `optimize_level`
+    inputs (`inputs`) and the per-level sampler records (`sampler_levels`)."""
     from intrinsic3d_torch.synthetic import PIPELINE_DATASET
 
     run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"],
@@ -1659,7 +1647,7 @@ def main() -> int:
     log(f"phase build: nvcc for {list(build.SOURCES)} in {time.perf_counter() - t0:.1f}s")
     for name, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
 
     # --- bench-scale problem and warm-up outer iteration (records kernel inputs)

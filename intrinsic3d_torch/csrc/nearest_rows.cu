@@ -34,18 +34,19 @@
 namespace {
 
 struct NearestOp {
+  static constexpr int NOUT = 1;
   struct Params {
     const float* images;
     int h, w;
   };
   template <int V>
   __device__ static __forceinline__ void eval(const Params& p, const float (&act)[V], const uint32_t (&fid)[V],
-                                              const uint32_t (&yi)[V], const uint32_t (&xi)[V], float (&o)[V]) {
+                                              const uint32_t (&yi)[V], const uint32_t (&xi)[V], float (&o)[1][V]) {
 #pragma unroll
     for (int v = 0; v < V; ++v)
-      o[v] = act[v] > 0.0f ? __ldg(p.images + ((int64_t)(int32_t)fid[v] * p.h + (int32_t)yi[v]) * (int64_t)p.w +
-                                   (int32_t)xi[v])
-                           : 0.0f;
+      o[0][v] = act[v] > 0.0f ? __ldg(p.images + ((int64_t)(int32_t)fid[v] * p.h + (int32_t)yi[v]) * (int64_t)p.w +
+                                      (int32_t)xi[v])
+                              : 0.0f;
   }
 };
 
@@ -56,7 +57,7 @@ extern "C" int i3d_nearest_rows(const void* images, const void* fid, const void*
                                 const void* active, void* out, long long m, int h, int w, void* stream) {
   return i3d_rows::launch_rows<NearestOp, 4>(
       {(const float*)images, h, w},
-      {(const float*)active, (const uint32_t*)fid, (const uint32_t*)yi, (const uint32_t*)xi, (float*)out,
+      {(const float*)active, (const uint32_t*)fid, (const uint32_t*)yi, (const uint32_t*)xi, {(float*)out},
        (int64_t)m},
       (cudaStream_t)stream);
 }

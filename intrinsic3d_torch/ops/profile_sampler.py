@@ -1,4 +1,4 @@
-"""Size sweep of the masked samplers K1a and K2 on the card.
+"""Size sweep of the masked samplers K1a, K1b and K2 on the card.
 
     python -m intrinsic3d_torch.ops.profile_sampler [--min-log2 16] [--max-log2 27]
         [--active-share 1.0] [--reps 10]
@@ -7,11 +7,11 @@ For M = 2^min … 2^max elements on bench-like inputs (8 frames of 320x240,
 elements frame-major in 512-element blocks whose coordinates fall in a
 few-pixel window, as in the block-dense layout; all active, or a share of
 them in whole active blocks), times the value sampler (`bicubic_rows`
-without derivatives, K1a) and the depth probe (`nearest_rows`, K2) one
-call at a time with the 50 MB L2 cache flushed before each
-(`roofline.cold_ms`), and prints each time beside its bound
-(`roofline.bound` of `roofline.needed_bytes`) and its share of it. Writes
-chiprun_out/profile_sampler_<share>.json. Needs a CUDA device.
+without derivatives, K1a), the value-and-derivatives sampler (with them,
+K1b) and the depth probe (`nearest_rows`, K2) one call at a time with the
+50 MB L2 cache flushed before each (`roofline.cold_ms`), and prints each
+time beside its bound (`roofline.bound` of `roofline.needed_bytes`) and its
+share of it. Writes chiprun_out/profile_sampler_<share>.json. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,13 +27,20 @@ import torch
 from intrinsic3d_torch.ops import bicubic, build
 from intrinsic3d_torch.ops.roofline import BICUBIC_OPS, bound, cold_ms, needed_bytes
 
-KERNELS = ("bicubic_rows_fwd", "nearest_rows")
+KERNELS = ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows")
+# bytes written per element and float operations per active element
+# (`roofline.needed_bytes`, `roofline.BICUBIC_OPS`)
+OUT_BYTES = {"bicubic_rows_fwd": 4, "bicubic_rows_fwdgrad": 12, "nearest_rows": 4}
+OPS = {"bicubic_rows_fwd": BICUBIC_OPS["fwd"], "bicubic_rows_fwdgrad": BICUBIC_OPS["fwdgrad"], "nearest_rows": 0}
 
 
 def entry_launcher(kernel: str) -> Callable:
-    """The launch the wrappers make (counted in `LAUNCHES`)."""
+    """The launch the wrappers make (counted in `LAUNCHES`): K1a's value,
+    K1b's (value, ddx, ddy), K2's depths."""
     if kernel == "bicubic_rows_fwd":
         return lambda images, fid, x, y, active: bicubic._launch_bicubic(images, fid, x, y, active, False)[0]
+    if kernel == "bicubic_rows_fwdgrad":
+        return lambda images, fid, x, y, active: bicubic._launch_bicubic(images, fid, x, y, active, True)
     return bicubic._launch_nearest
 
 
@@ -57,7 +64,7 @@ def sweep_inputs(kernel: str, m: int, seed: int = 0, share: float = 1.0, k: int 
     p_block = min(1.0, 2.0 * share)
     on = rep((torch.rand(nb, generator=gen, device=dev) < p_block).float())
     active = on * (torch.rand(m, generator=gen, device=dev) < share / p_block).float()
-    if kernel == "bicubic_rows_fwd":
+    if kernel != "nearest_rows":
         return images, fid, x.contiguous(), y.contiguous(), active
     yi = torch.clamp(torch.floor(y + 0.5), 0, h - 1).to(torch.int32)
     xi = torch.clamp(torch.floor(x + 0.5), 0, w - 1).to(torch.int32)
@@ -68,12 +75,11 @@ def sweep(min_log2: int, max_log2: int, reps: int, share: float = 1.0) -> list:
     rows = []
     for kernel in KERNELS:
         fn = entry_launcher(kernel)
-        ops = BICUBIC_OPS["fwd"] if kernel == "bicubic_rows_fwd" else 0
         for lg in range(min_log2, max_log2 + 1):
             m = 2**lg
             inputs = sweep_inputs(kernel, m, seed=lg, share=share)
             n_act = int((inputs[4] > 0).sum())
-            b_ms, b_by = bound(needed_bytes(inputs[0], m, n_act, 4), n_act * ops)
+            b_ms, b_by = bound(needed_bytes(inputs[0], m, n_act, OUT_BYTES[kernel]), n_act * OPS[kernel])
             row = dict(kernel=kernel, m=m, active=n_act, bound_ms=b_ms, bound_by=b_by,
                        cold_ms=cold_ms(lambda: fn(*inputs), reps))
             row["pct_of_bound"] = 100 * b_ms / row["cold_ms"]

@@ -73,19 +73,20 @@ def test_nearest_rows_kernel_matches_plain(cuda_device):
     assert bicubic.LAUNCHES["nearest_rows"] == 1
 
 
-# K1a and K2 through the element stream of csrc/rows_common.cuh: ragged
+# K1a, K1b and K2 through the element stream of csrc/rows_common.cuh: ragged
 # lengths (vector groups and a scalar tail), 512-element inactive runs,
 # storage offsets (only 4-byte aligned: scalar loads)
 STREAM_M = [0, 1, 3, 4, 5, 511, 512, 513, 2**20 + 3]
+STREAM_KERNELS = ["bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"]
 
 
 def _stream_problem(kernel, m, seed, offsets=(0, 0, 0, 0), pattern="runs", k=8, h=240, w=320):
-    """K1a (`bicubic_rows_fwd`: fid, x, y, active) or K2 (`nearest_rows`:
-    fid, yi, xi, active) inputs on the card, frame-major in 512-element
-    blocks: every third block wholly inactive and 70% of the rest active
-    (`pattern` "runs"), or none active ("none"). Array i is a view starting
-    `offsets[i]` elements into a larger tensor. K1a's coordinates reach past
-    the frame and include NaNs."""
+    """K1a or K1b (`bicubic_rows_fwd`, `bicubic_rows_fwdgrad`: fid, x, y,
+    active) or K2 (`nearest_rows`: fid, yi, xi, active) inputs on the card,
+    frame-major in 512-element blocks: every third block wholly inactive and
+    70% of the rest active (`pattern` "runs"), or none active ("none").
+    Array i is a view starting `offsets[i]` elements into a larger tensor.
+    The bicubic coordinates reach past the frame and include NaNs."""
     rng = np.random.default_rng(seed)
     images = rng.uniform(0.3, 5.0, (k, h, w)).astype(np.float32)
     fid = (np.arange(m) // 512 * k // max(1, -(-m // 512))).astype(np.int32)
@@ -95,7 +96,7 @@ def _stream_problem(kernel, m, seed, offsets=(0, 0, 0, 0), pattern="runs", k=8, 
     active[(np.arange(m) // 512) % 3 == 1] = 0.0
     if pattern == "none":
         active[:] = 0.0
-    if kernel == "bicubic_rows_fwd":
+    if kernel != "nearest_rows":
         x[::97] = np.nan
         y[5::89] = np.nan
         a, b = x, y
@@ -113,56 +114,65 @@ def _stream_problem(kernel, m, seed, offsets=(0, 0, 0, 0), pattern="runs", k=8, 
 
 
 def _stream_want(kernel, images, fid, a, b, active):
-    """The plain version; K1a's NaN coordinates sample the clip corner."""
+    """The plain version's outputs (K1a: the value; K1b: value, ddx, ddy;
+    K2: the depths). A NaN coordinate samples the clip corner, and its
+    derivative is 0 (the unclipped NaN fails the range mask)."""
+    if kernel == "nearest_rows":
+        return (bicubic.nearest_rows_plain(images, fid, a, b, active),)
+    val, ddx, ddy = bicubic.bicubic_rows_plain(images, fid, torch.nan_to_num(a, nan=1.0),
+                                               torch.nan_to_num(b, nan=1.0), active)
     if kernel == "bicubic_rows_fwd":
-        return bicubic.bicubic_rows_plain(images, fid, torch.nan_to_num(a, nan=1.0), torch.nan_to_num(b, nan=1.0),
-                                          active)[0]
-    return bicubic.nearest_rows_plain(images, fid, a, b, active)
+        return (val,)
+    return val, torch.where(torch.isnan(a), 0.0, ddx), torch.where(torch.isnan(b), 0.0, ddy)
 
 
 def _stream_check(kernel, inputs):
-    """One wrapper call: one launch, and the plain version's output (K2
-    exactly, K1a to float32 rounding, rtol 1e-5)."""
+    """One launch through the wrapper (K1b through `_launch_bicubic` with
+    derivatives), and the plain version's outputs (K2 exactly, K1a's value
+    and K1b's three outputs to float32 rounding, rtol 1e-5). Returns the
+    outputs."""
     bicubic.reset_launches()
     if kernel == "bicubic_rows_fwd":
-        got = bicubic.bicubic_rows(*inputs)
+        got = (bicubic.bicubic_rows(*inputs),)
+    elif kernel == "bicubic_rows_fwdgrad":
+        got = bicubic._launch_bicubic(*inputs, True)
     else:
-        got = bicubic.nearest_rows(*inputs)
+        got = (bicubic.nearest_rows(*inputs),)
     torch.cuda.synchronize()
     assert bicubic.LAUNCHES == dict(NO_LAUNCHES, **{kernel: 1})
-    want = _stream_want(kernel, *inputs)
-    if kernel == "bicubic_rows_fwd":
-        assert torch.isfinite(got).all()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
-    else:
-        assert torch.equal(got, want)
+    for g, want in zip(got, _stream_want(kernel, *inputs), strict=True):
+        if kernel == "nearest_rows":
+            assert torch.equal(g, want)
+        else:
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
     return got
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bicubic_rows_fwd", "nearest_rows"])
+@pytest.mark.parametrize("kernel", STREAM_KERNELS)
 @pytest.mark.parametrize("m", STREAM_M)
 def test_sampler_streams_match_plain_on_ragged_lengths(cuda_device, kernel, m):
     _stream_check(kernel, _stream_problem(kernel, m, seed=m))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bicubic_rows_fwd", "nearest_rows"])
+@pytest.mark.parametrize("kernel", STREAM_KERNELS)
 @pytest.mark.parametrize("offsets", [(1, 1, 1, 1), (2, 2, 2, 2), (3, 3, 3, 3), (1, 0, 3, 2)])
 def test_sampler_streams_take_storage_offsets(cuda_device, kernel, offsets):
     """Views `t[off:]` of larger tensors, 4-byte aligned only, with the same
     offset on every input or mixed offsets: the kernel reads them with
-    scalar loads, the output (allocated by the wrapper) being aligned."""
+    scalar loads, the outputs (allocated by the wrapper) being aligned."""
     for m in (5, 513, 4099):
         _stream_check(kernel, _stream_problem(kernel, m, seed=m + sum(offsets), offsets=offsets))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bicubic_rows_fwd", "nearest_rows"])
+@pytest.mark.parametrize("kernel", STREAM_KERNELS)
 def test_sampler_streams_all_inactive(cuda_device, kernel):
     for m in (3, 512, 2**20 + 3):
-        got = _stream_check(kernel, _stream_problem(kernel, m, seed=m, pattern="none"))
-        assert torch.equal(got, torch.zeros_like(got))
+        for got in _stream_check(kernel, _stream_problem(kernel, m, seed=m, pattern="none")):
+            assert torch.equal(got, torch.zeros_like(got))
 
 
 @pytest.mark.cuda

@@ -203,6 +203,25 @@ def test_bicubic_value_plain_matches_pallas_on_ragged_lengths(m, pattern):
 
 
 @pytest.mark.parametrize("m,pattern", RAGGED_CASES)
+def test_bicubic_fwdgrad_plain_matches_pallas_on_ragged_lengths(m, pattern):
+    """The value, ddx and ddy (K1b's outputs) against `jax.vjp` of the Pallas
+    sampler with a unit cotangent, on the chunk-padded arrays."""
+    images, fid, x, y, active = _ragged_problem(m, pattern, seed=200 + m)
+    jf, jx, jy, ja = (jnp.asarray(a) for a in _pad_chunks(m, fid, x, y, active))
+    val_j, vjp = jax.vjp(lambda xx, yy: jbic.bicubic_sample_rows(jnp.asarray(images), jf, xx, yy, ja), jx, jy)
+    want = (val_j, *vjp(jnp.ones_like(val_j)))
+    got = bicubic.bicubic_rows_plain(_t(images), _t(fid, torch.int32), _t(x), _t(y), _t(active))
+    # the value's tolerance (test_bicubic_value_plain_matches_pallas_on_ragged_lengths:
+    # the Pallas bf16 hi/lo split dots on images up to 5); the derivatives'
+    # absolute error scales with their weights' sum Σ|dw_x|·Σ|w_y| <= 3 x
+    # 1.25, against the value's Σ|w_x|·Σ|w_y| <= 1.25 x 1.25
+    for name, g, w, atol in zip(("value", "ddx", "ddy"), got, want, (2e-4, 2e-4 * 3 / 1.25, 2e-4 * 3 / 1.25)):
+        assert g.shape == (m,), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:m], rtol=1e-5, atol=atol, err_msg=name)
+        assert np.all(g.numpy()[active == 0] == 0), name
+
+
+@pytest.mark.parametrize("m,pattern", RAGGED_CASES)
 def test_nearest_rows_plain_matches_pallas_on_ragged_lengths(m, pattern):
     images, fid, x, y, active = _ragged_problem(m, pattern, seed=100 + m)
     h, w = images.shape[1:]
