@@ -69,7 +69,19 @@ tries, 12 CG steps):
    their plain versions on them after the run, and prints per level M,
    the active share, the times, the bound and the share of the bound, and
    per kernel the sum over levels of launches x L2-flushed ms (the `levels`
-   and `main_path_ms` of the K1a, K1b and K2 records).
+   and `main_path_ms` of the K1a, K1b and K2 records). The refinement runs
+   with the level pipeline on (the default): each level's layout, plan,
+   stencil tables and statics, and each grid-level boundary's upsample and
+   sparsify index tables, built on background threads;
+7a. refines the same fused grid four more times, capturing nothing, with
+   the level pipeline off, on, on and off (`Intrinsic3D(prefetch=)`);
+   prints each run's wall clock, its phases by kind and by name (the
+   threads' own seconds under `prefetch` and `upsample_prep`) and each
+   level's median outer iteration (chiprun_out/prefetch_ab.json and each
+   run's <tag>_levels.json); fails unless every run meets step 7's bars,
+   plans every level as step 7 did (plan, bucket blocks, chunks) and
+   starts from step 7's first cost (rtol 1e-5; the gaps between runs of
+   one setting and between the settings are printed).
 
 The multi-device refinement (`intrinsic3d_torch.parallel`, ranks spawned
 by `parallel.dryrun.launch` after the kernels and the native library are
@@ -614,15 +626,17 @@ PIPELINE_SCHEDULE = [(2, 2), (2, 1), (2, 0), (1, 0), (0, 0)]
 
 
 def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: bool = False,
-                   capture_samplers: bool = False) -> dict:
+                   capture_samplers: bool = False, prefetch: bool = True) -> dict:
     """`Intrinsic3D.refine` of `fused` on the card (stage 3 of
     bench_pipeline.py: 3 grid levels × 3 pyramid levels, 10 outer iterations
-    each) from the sensor's `initial` poses and camera, with the launch
-    counters zeroed just before and read just after. Prints each level's
-    size, plan, iteration times, costs, tries, mu and peak memory, and the
-    phase seconds; writes them to chiprun_out/<tag>_levels.json. With
-    `capture_levels`, every level's `optimize_level` arguments are kept
-    under `inputs` (references only: nothing is copied). With
+    each) from the sensor's `initial` poses and camera, with the level
+    pipeline on or off (`prefetch`) and the launch counters zeroed just
+    before and read just after. Prints each level's size, plan, iteration
+    times, costs, tries, mu and peak memory, and the phase seconds; writes
+    them to chiprun_out/<tag>_levels.json. With `capture_levels`, every
+    level's `optimize_level` arguments are kept under `inputs` (the grid
+    copied, the rest references; `prep=None` in place of the level's
+    consumed `LevelPrep`, so a replay builds its level serially). With
     `capture_samplers`, a host copy of the inputs of each level's first K1a,
     K1b and K2 call inside `optimize_level` is kept under `sampler_calls`,
     one dict a level, with the level's launches of every kernel (`launches`)
@@ -644,9 +658,13 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
 
     def keep_inputs(grid, *args, **kw):
         # `refine` writes the refined fields and colours back into the
-        # level's grid afterwards: keep the grid the level started from
+        # level's grid afterwards: keep the grid the level started from,
+        # once the level's prep thread (which memoizes the grid's topology
+        # on it) has ended
         if capture_levels:
-            inputs.append(((copy.deepcopy(grid), *args), kw))
+            if kw.get("prep") is not None:
+                kw["prep"].join()
+            inputs.append(((copy.deepcopy(grid), *args), dict(kw, prep=None)))
         if not capture_samplers:
             return real(grid, *args, **kw)
         calls, before = {}, dict(build.LAUNCHES)
@@ -670,7 +688,7 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
         build.reset_launches()
         t0 = time.perf_counter()
         engine = intrinsic3d.Intrinsic3D(PIPELINE_REFINEMENT, sensor, keyframes, cg_iters=PIPELINE_CG_ITERS,
-                                         stats=stats)
+                                         stats=stats, prefetch=prefetch)
         engine.add_callback(lambda info: levels.append((info.grid_level, info.pyramid_level, info.grid.num_voxels,
                                                         info.stats)))
         refined = engine.refine(fused, stats=stats)
@@ -681,7 +699,8 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
         intrinsic3d.optimize_level = real
 
     capture_s = sum(calls.get("capture_s", 0.0) for calls in sampler_calls)
-    log(f"phase {tag}: {len(keyframes)} keyframes, fused {fused.num_voxels} voxels -> refined "
+    log(f"phase {tag} (level pipeline {'on' if prefetch else 'off'}): {len(keyframes)} keyframes, fused "
+        f"{fused.num_voxels} voxels -> refined "
         f"{refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s"
         + (f" ({capture_s:.3f}s of it the host copies of the sampler inputs)" if capture_samplers else ""))
     records = []
@@ -695,16 +714,17 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
             f"{st.peak_bytes / 1e9:.3f} GB = {per_el:.1f} B/element")
         records.append(dict(level=f"g{g}p{p}", voxels=nvox, blocks=st.num_blocks, bucket_blocks=st.bucket_blocks,
                             eg_chunks=st.eg_chunks, elements=st.elements, reason=st.reason,
-                            setup_s=st.setup_seconds, iter_s=st.iter_seconds, costs_before=st.costs_before,
+                            setup_s=st.setup_seconds, prefetch_s=st.prefetch_seconds, iter_s=st.iter_seconds,
+                            costs_before=st.costs_before,
                             costs_after=st.costs_after, tries=st.tries, mu=st.mus[-1], peak_bytes=st.peak_bytes,
                             bytes_per_element=per_el))
     log("  refinement phases (s): " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
     log(f"  launches {launches}")
     (REPO / "chiprun_out").mkdir(exist_ok=True)
     (REPO / "chiprun_out" / f"{tag}_levels.json").write_text(json.dumps(
-        dict(total_s=total_s, phases=stats, levels=records, launches=launches), indent=1))
+        dict(total_s=total_s, prefetch=prefetch, phases=stats, levels=records, launches=launches), indent=1))
     return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial,
-                sampler_calls=sampler_calls)
+                sampler_calls=sampler_calls, phases=stats, prefetch=prefetch)
 
 
 def check_levels(run: dict) -> dict:
@@ -969,6 +989,92 @@ def refinement_phase(fusion: dict) -> dict:
     run["sampler_levels"] = check_levels(run)
     del run["sampler_calls"]
     return run
+
+
+# the phase kinds the level pipeline moves, as the engine names them
+PIPELINE_PHASE_KINDS = ("level_setup", "prefetch", "topology", "svsh", "solve", "upsample", "upsample_prep",
+                        "sparsify", "recolor", "initial_recolor", "pyramids")
+PREFETCH_AB = (False, True, True, False)
+# the first level starts from the same grid in every run, but its colors and
+# lighting come from the card's atomic sums: two runs of one setting were
+# 1.07e-6 apart on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6, the level
+# pipeline), so the bar sits at ten times that and the gaps are printed
+FIRST_COST_RTOL = 1e-5
+
+
+def prefetch_phase(fusion: dict, main: dict) -> dict:
+    """The pipeline refinement of step 7 again with the level pipeline off
+    and on (`Intrinsic3D(prefetch=)`), four uncaptured runs in the order
+    off, on, on, off in this call. Prints every run's wall clock and its
+    phases summed by kind (the preps' own thread seconds under `prefetch`
+    and `upsample_prep`), every phase by name beside its counterpart, and
+    each level's median outer iteration (the solve's, which a background
+    thread holding the GIL would slow: the convoy effect). Fails unless
+    every run meets `check_refinement`'s bars, every level's plan, bucket
+    blocks and chunks equal step 7's, and the first level's first
+    cost is within `FIRST_COST_RTOL` of step 7's (the same grid; the
+    largest gaps between runs of one setting and between the settings are
+    printed). Writes chiprun_out/prefetch_ab.json."""
+    import numpy as np
+
+    from intrinsic3d_torch.synthetic import PIPELINE_DATASET
+
+    runs = []
+    for i, prefetch in enumerate(PREFETCH_AB):
+        run = run_refinement(f"refinement_prefetch_{'on' if prefetch else 'off'}_{i}", fusion["sensor"],
+                             fusion["keyframes"], fusion["initial"], fusion["grid"], prefetch=prefetch)
+        check_refinement(run, fusion["sensor"], fusion["keyframes"], PIPELINE_DATASET)
+        # the later levels' voxel sets follow each run's own trajectory (the
+        # card's atomic sums), so their block counts may differ by a few
+        for lv, ref in zip(run["levels"], main["levels"]):
+            got = (lv["level"], lv["reason"], lv["bucket_blocks"], lv["eg_chunks"])
+            want = (ref["level"], ref["reason"], ref["bucket_blocks"], ref["eg_chunks"])
+            if got != want:
+                fail(f"run {i} (prefetch {prefetch}) planned {got} where step 7 planned {want}")
+        got, want = run["levels"][0]["costs_before"][0], main["levels"][0]["costs_before"][0]
+        if not np.isclose(got, want, rtol=FIRST_COST_RTOL, atol=0.0):
+            fail(f"run {i} (prefetch {prefetch}): first cost {got} not within rtol {FIRST_COST_RTOL:g} of step 7's "
+                 f"{want}")
+        kinds = {k: 0.0 for k in PIPELINE_PHASE_KINDS}
+        for name, sec in run["phases"].items():
+            kinds[name.split("[")[0]] = kinds.get(name.split("[")[0], 0.0) + sec
+        runs.append(dict(prefetch=prefetch, total_s=run["total_s"], phases=run["phases"], kinds=kinds,
+                         medians={lv["level"]: statistics.median(lv["iter_s"]) for lv in run["levels"]},
+                         first_cost=got))
+        del run
+    log("  level pipeline A/B (off, on, on, off; host wall clock, the device synchronized at every phase end; "
+        "prefetch and upsample_prep are the threads' own seconds, overlapped):")
+    for r in runs:
+        log(f"    prefetch {'on ' if r['prefetch'] else 'off'}: refinement {r['total_s']:.4f}s; "
+            + " ".join(f"{k}={v:.4f}" for k, v in r["kinds"].items()))
+    names = list(dict.fromkeys(n for r in runs for n in r["phases"]))
+    for name in names:
+        cells = " / ".join("-" if name not in r["phases"] else f"{r['phases'][name]:.4f}" for r in runs)
+        log(f"    {name}: {cells}")
+    for level in runs[0]["medians"]:
+        off = [r["medians"][level] for r in runs if not r["prefetch"]]
+        on = [r["medians"][level] for r in runs if r["prefetch"]]
+        log(f"    {level} median outer iteration: off {' / '.join(f'{m:.4f}' for m in off)} s, on "
+            f"{' / '.join(f'{m:.4f}' for m in on)} s (on / off {sum(on) / sum(off):.3f})")
+    firsts = [(True, main["levels"][0]["costs_before"][0])] + [(r["prefetch"], r["first_cost"]) for r in runs]
+
+    def gap(pairs):
+        return max((abs(a - b) / abs(b) for a, b in pairs), default=0.0)
+
+    same = gap((a, b) for i, (pa, a) in enumerate(firsts) for pb, b in firsts[i + 1:] if pa == pb)
+    cross = gap((a, b) for i, (pa, a) in enumerate(firsts) for pb, b in firsts[i + 1:] if pa != pb)
+    log(f"  first level's first cost: step 7 {firsts[0][1]:.7f}, runs " + " / ".join(f"{c:.7f}" for _, c in firsts[1:])
+        + f"; largest gap between runs of one setting {same:.2e}, between the settings {cross:.2e} (bar "
+        f"{FIRST_COST_RTOL:g} to step 7's)")
+    on_s = [r["total_s"] for r in runs if r["prefetch"]]
+    off_s = [r["total_s"] for r in runs if not r["prefetch"]]
+    log(f"  level pipeline: refinement on {' / '.join(f'{t:.4f}' for t in on_s)} s against off "
+        f"{' / '.join(f'{t:.4f}' for t in off_s)} s (mean on / off {sum(on_s) / sum(off_s):.3f}); plans and first "
+        f"costs equal to step 7's")
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    (REPO / "chiprun_out" / "prefetch_ab.json").write_text(json.dumps(dict(order=list(PREFETCH_AB), runs=runs),
+                                                                      indent=1))
+    return dict(runs=runs)
 
 
 def exact_bucket_blocks(inputs) -> int:
@@ -1743,6 +1849,12 @@ def main() -> int:
             r.update(refinement["sampler_levels"][r["name"]])
     window_inputs, fusion_launches = fusion["window"], fusion["launches"]
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
+
+    # --- phase 5a: the same refinement with the level pipeline off and on,
+    # four uncaptured runs in this call
+    prefetch_phase(fusion, refinement)
+    log("phase check: the refinement with the level pipeline off and on planned every level alike, started from "
+        "the same first cost and met its bars")
 
     # --- phase 5b: the same refinement on two ranks sharing the card, the
     # dry run at 4 ranks, one rank over NCCL; each rank's counts zeroed just

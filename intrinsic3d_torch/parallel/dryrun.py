@@ -399,11 +399,12 @@ def fusion_task(mesh: Mesh, scene: dict, voxel_size: float = 0.02) -> dict:
 
 
 def mesh_loop_task(mesh: Mesh, scene: dict, cfg: dict, voxel_size: float = 0.03, cg_iters: int = 6,
-                   single: bool = True) -> dict:
+                   single: bool = True, prefetch: bool = True) -> dict:
     """`Intrinsic3D(mesh=).refine` of the scene fused at `voxel_size`, and
     with `single` the single-device engine's refinement of the same fused
-    grid: the refined fields of both, the mesh run's placement records and
-    each level's costs."""
+    grid, both with the level preps on or off (`prefetch`): the refined
+    fields of both, the mesh run's placement records and each level's
+    costs."""
     from intrinsic3d_torch.config import RefinementConfig
     from intrinsic3d_torch.io.memory_sensor import MemorySensor
     from intrinsic3d_torch.refine.intrinsic3d import Intrinsic3D
@@ -418,7 +419,7 @@ def mesh_loop_task(mesh: Mesh, scene: dict, cfg: dict, voxel_size: float = 0.03,
         sensor = MemorySensor(cam, cam, list(scene["colors"]), list(scene["depths"]), list(scene["poses"]),
                               scene["depth_min"], scene["depth_max"])
         engine = Intrinsic3D(rcfg, sensor, keyframes, cg_iters=cg_iters, device=dev,
-                             mesh=mesh if with_mesh else None)
+                             mesh=mesh if with_mesh else None, prefetch=prefetch)
         levels = []
         engine.add_callback(lambda info: levels.append(dict(
             level=f"g{info.grid_level}p{info.pyramid_level}", costs_before=info.stats.costs_before,

@@ -16,6 +16,7 @@ normals, iso points, top-N observations (depth probe through the
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -68,14 +69,20 @@ class LevelTopology:
         )
 
 
+_TOPO_LOCK = threading.Lock()
+
+
 def level_topology(grid: VoxelGrid) -> LevelTopology:
     """`LevelTopology.build` memoized per grid object. A grid's coordinates
     never change (structural passes return new grids), so the tables never
-    go stale; every pyramid level of a grid level reuses them."""
-    topo = grid.__dict__.get("_topo_cache")
-    if topo is None:
-        topo = LevelTopology.build(grid)
-        grid._topo_cache = topo
+    go stale; every pyramid level of a grid level reuses them. The memo is
+    locked: a level prep's thread (`refine.optimizer.LevelPrep`) and the
+    main thread never both build a grid's tables."""
+    with _TOPO_LOCK:
+        topo = grid.__dict__.get("_topo_cache")
+        if topo is None:
+            topo = LevelTopology.build(grid)
+            grid._topo_cache = topo
     return topo
 
 

@@ -18,14 +18,19 @@ rank, which the runner places back as bricks for the recolor sweep and the
 next SVSH. Colors are gathered to every rank only at pyramid-level ends
 (the host-side color table); pose and intrinsics updates read only the
 replicated globals. Reference orchestration: ``intrinsic3d.cpp:230-295``.
-Not ported: the JAX runner's prefetch thread and its `I3D_PREFETCH`
-switch, the TPU's program-upload workaround (as `LevelPrep` is).
+With the engine's `prefetch` (the JAX runner's `I3D_PREFETCH`), each pyramid
+level's host half (the rank's statics with zero SH, the plan at the mesh's
+budget, the stencil tables) is built by a `refine.optimizer.LevelPrep`
+thread while the sharded SVSH runs; the `SpmdLevel`, which places tensors
+on the card, is built after the join on the main thread. The JAX runner's
+program warm-up (`SpmdLevel.warm`) has no counterpart.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,7 +53,7 @@ class MeshLevelRunner:
         self,
         engine,  # Intrinsic3D
         grid: VoxelGrid,
-        topo: LevelTopology,
+        topo: Optional[LevelTopology],  # None: built by the level preps (or `optimize_level`)
         thres_shell: float,
         grid_lvl: int,
         coarsest: int,
@@ -94,7 +99,7 @@ class MeshLevelRunner:
         (``intrinsic3d.cpp:242-295``) with every full-grid device stage
         sharded. `stats` (a dict) receives the phase seconds under the
         single-device names."""
-        from intrinsic3d_torch.refine.intrinsic3d import RefinementInfo
+        from intrinsic3d_torch.refine.intrinsic3d import RefinementInfo, record_level
 
         engine = self.engine
         cfg = engine.cfg
@@ -119,6 +124,11 @@ class MeshLevelRunner:
             if rgbd_lvl > 0 and self.grid_lvl < self.coarsest:
                 continue
             log.info("level %d (pyramid %d) [mesh]", self.grid_lvl, rgbd_lvl)
+            # the rank's host statics, plan and stencil tables, built while
+            # the sharded lighting estimate below runs (no collective and no
+            # tensor on the thread)
+            prep = (engine._level_prep(grid, self.topo, params, self.thres_shell, rgbd_lvl, layout=self.layout)
+                    if engine.prefetch else None)
 
             # lighting estimation, sharded (``intrinsic3d.cpp:250-270``)
             t0 = time.perf_counter()
@@ -132,12 +142,9 @@ class MeshLevelRunner:
             params, mu, st = optimize_level(
                 grid, self.topo, params, cfg, None, engine.depths_lvl[rgbd_lvl], engine.intens_lvl[rgbd_lvl], None,
                 self.thres_shell, rgbd_lvl, mu0=mu, cg_iters=cg_iters, mesh=self.mesh, ctx=self.ctx,
-                eg_sh=eg_sh_dev, **engine.solver_kw,
+                eg_sh=eg_sh_dev, prep=prep, **engine.solver_kw,
             )
-            if stats is not None:
-                tag = f"p{rgbd_lvl}v{grid.num_voxels}"
-                stats[f"level_setup[{tag}]"] = st.setup_seconds
-                stats[f"solve[{tag}]"] = sum(st.iter_seconds)
+            record_level(stats, st, prep is not None, f"p{rgbd_lvl}v{grid.num_voxels}")
             self.placement += [(f"{name}[pyr{rgbd_lvl}]", total, mine) for name, total, mine in st.placement]
 
             # recolor (sharded) + write-back (``intrinsic3d.cpp:353-378``)

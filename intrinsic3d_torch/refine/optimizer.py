@@ -15,8 +15,11 @@ layout, statics and shift plans for a caller that steps it itself.
 (`refine.assembly.build_assembly` + the flat `gn_iteration`). The level's
 setup and solve seconds go to `timer.record_phase` under the JAX package's
 names. `optimize_level(mesh=)` runs the same outer loop on one rank's brick
-of a spatially sharded level (`parallel.spmd.SpmdLevel`). The JAX package's
-background `LevelPrep` is not ported.
+of a spatially sharded level (`parallel.spmd.SpmdLevel`). `LevelPrep`
+builds a level's host half (layout, plan, stencil tables, statics with zero
+SH) on a background thread while the caller estimates the lighting, and
+`optimize_level(prep=)` takes it over; the JAX package's program warm-up in
+the same class has no counterpart (the card has no program to load).
 """
 
 from __future__ import annotations
@@ -44,7 +47,14 @@ from intrinsic3d_torch.refine.blockform import (
     params_from_block,
     table_to_dense,
 )
-from intrinsic3d_torch.refine.device_assembly import LevelStatic, build_level_static, device_assembly
+from intrinsic3d_torch.prefetch import HostPrep
+from intrinsic3d_torch.refine.device_assembly import (
+    LevelStatic,
+    device_assembly,
+    fill_voxel_sh,
+    level_static_host,
+    upload_level_static,
+)
 from intrinsic3d_torch.refine.residuals import Params
 from intrinsic3d_torch.refine.solver import gn_iteration
 from intrinsic3d_torch.timer import record_phase
@@ -102,6 +112,14 @@ def eg_hbm_budget(device="cuda") -> float:
     else:
         total = float(os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
     return min(total - _EG_HBM_HEADROOM, 0.7 * total)
+
+
+def level_budget(device="cuda", mesh=None) -> float:
+    """The E_g element budget a level plans against by default: one card's
+    (`eg_hbm_budget`), or under `mesh` one card's times the ranks over the
+    ranks sharing a card (the element fields split about 1/n a rank)."""
+    dev = mesh.device if mesh is not None else device
+    return eg_hbm_budget(dev) * (1.0 if mesh is None else mesh.size / mesh.ranks_on_device)
 
 
 def plan_eg_layout(
@@ -324,18 +342,23 @@ def prepare_level(
     layout: Optional[BlockLayout] = None,
     bmap: Optional[np.ndarray] = None,
     eg_chunks: int = 1,
+    static: Optional[LevelStatic] = None,
 ) -> LevelSetup:
     """Block layout (built unless given), level statics, shift plans and
     block-dense parameters of one level, on `device`. `lambdas` are the raw
     (λ_g, λ_r, λ_s, λ_a); `bmap` (host frame buckets, `plan_eg_layout`'s) and
-    `eg_chunks` set the E_g element layout."""
+    `eg_chunks` set the E_g element layout. `static` (a host static of
+    `layout`, `level_static_host`'s) is uploaded instead of built from
+    `topo` and `voxel_sh`."""
     dev = resolve_device(device)
     if layout is None:
         layout = BlockLayout.build(grid)
+    if static is None:
+        static = level_static_host(layout, grid, topo, voxel_sh)
     sdf_plan, alb_plan = layout_plans(layout, dev)
     return LevelSetup(
         layout=layout,
-        static=build_level_static(layout, grid, topo, voxel_sh, device=dev),
+        static=upload_level_static(static, dev),
         sdf_plan=sdf_plan,
         alb_plan=alb_plan,
         params=params._replace(
@@ -353,14 +376,137 @@ def prepare_level(
     )
 
 
+class PlanInputs(NamedTuple):
+    """Host copies of what `plan_eg_layout` reads of a level's parameters
+    and images, made on the calling thread."""
+
+    poses: np.ndarray  # [K, 6]
+    intr: np.ndarray  # [4] float64 fx fy cx cy at the pyramid level
+    depths: Optional[np.ndarray]  # [K, H, W] level depth maps, or None (no occlusion culling)
+    width: int
+    height: int
+
+
+def plan_inputs(params: Params, depths_host: Optional[np.ndarray], width: int, height: int,
+                rgbd_level: int) -> PlanInputs:
+    """`PlanInputs` of a level: the poses and the intrinsics at the pyramid
+    level pulled to numpy (a device sync on the card), with the level's
+    host depth maps."""
+    return PlanInputs(
+        poses=params.poses.detach().cpu().numpy(),
+        intr=params.intr.detach().cpu().numpy().astype(np.float64) * pyramid_level_to_scale(rgbd_level),
+        depths=depths_host,
+        width=width,
+        height=height,
+    )
+
+
+def _plan_level(layout: BlockLayout, inputs: PlanInputs, cfg: RefinementConfig, voxel_size: float,
+                thres_shell: float, budget: float):
+    """`plan_eg_layout` of a level from its host inputs: numpy only, so the
+    serial path and a `LevelPrep` thread run the same code."""
+    return plan_eg_layout(
+        layout, inputs.poses, inputs.intr, cfg, inputs.width, inputs.height, voxel_size, thres_shell,
+        inputs.depths if cfg.occlusion_distance > 0.0 else None, budget=budget,
+    )
+
+
+class LevelPrep(HostPrep):
+    """A level's host half, built on a background thread: the counterpart of
+    `intrinsic3d_tpu/refine/optimizer.py::LevelPrep` without its program
+    warm-up.
+
+    Started before the level's lighting estimate (which needs only the
+    normal stencil `nbr4`), the thread builds what `optimize_level` would
+    build after it: the `BlockLayout` (unless `layout` is given), the
+    `plan_eg_layout` decision `(bmap, reason, eg_chunks)` against `budget`,
+    `level_topology(grid)` (unless `topo` is given; memoized per grid; on a
+    second thread, beside the layout and the plan) and the level statics
+    with zero SH (`level_static_host`). `optimize_level(prep=)` joins it,
+    writes the real per-voxel SH into the statics and uploads them on the
+    calling thread. `program_only=True` (the next pyramid
+    level of the coarsest grid, started while the current one recolors and
+    the grid's colors still change) plans only and reuses `layout`; the
+    level then builds its statics itself.
+
+    The constructor, on the calling thread, pulls the poses and intrinsics
+    to numpy; `depths_host` is the level's depth maps already on the host
+    and `budget` a number (`level_budget`), so the thread calls nothing of
+    CUDA. Its products are numpy arrays and host objects: `layout`, `plan`,
+    `topo`, `static` (None with `program_only`)."""
+
+    def __init__(
+        self,
+        grid: VoxelGrid,
+        topo: Optional[LevelTopology],
+        params: Params,
+        cfg: RefinementConfig,
+        depths_host: np.ndarray,  # [K, H, W] the level's depth maps on the host
+        thres_shell: float,
+        rgbd_level: int,
+        *,
+        budget: float,
+        layout: Optional[BlockLayout] = None,
+        blocks_multiple: int = 8,
+        program_only: bool = False,
+    ):
+        if program_only and layout is None:
+            raise ValueError("a program_only prep reuses the level's layout: pass layout=")
+        self.grid = grid
+        self.topo = topo
+        self.layout = layout
+        self.rgbd_level = rgbd_level
+        self.budget = float(budget)
+        self.program_only = program_only
+        h, w = int(depths_host.shape[1]), int(depths_host.shape[2])
+        self.inputs = plan_inputs(params, depths_host, w, h, rgbd_level)
+        self.plan = None  # (bmap [K, NBc] int32 or None, reason, eg_chunks)
+        self.static = None  # LevelStatic of numpy arrays, zero SH
+        self._cfg = cfg
+        self._thres_shell = float(thres_shell)
+        self._blocks_multiple = blocks_multiple
+        super().__init__(f"level p{rgbd_level}v{grid.num_voxels}")
+
+    def _prepare(self) -> None:
+        grid = self.grid
+        # the stencil tables (mostly the native library, which runs without
+        # the GIL) on a second thread beside the layout and the plan
+        tables = _TopologyPrep(grid) if self.topo is None and not self.program_only else None
+        try:
+            if self.layout is None:
+                self.layout = BlockLayout.build(grid, blocks_multiple=self._blocks_multiple)
+            self.plan = _plan_level(self.layout, self.inputs, self._cfg, grid.voxel_size, self._thres_shell,
+                                    self.budget)
+        finally:
+            if tables is not None:
+                tables.wait()
+        if not self.program_only:
+            if tables is not None:
+                self.topo = tables.join().topo
+            self.static = level_static_host(self.layout, grid, self.topo, None)
+
+
+class _TopologyPrep(HostPrep):
+    """`level_topology(grid)` on a thread of its own (inside a `LevelPrep`)."""
+
+    def __init__(self, grid: VoxelGrid):
+        self.grid = grid
+        self.topo = None
+        super().__init__(f"topology v{grid.num_voxels}")
+
+    def _prepare(self) -> None:
+        self.topo = level_topology(self.grid)
+
+
 @dataclasses.dataclass
 class OptimizeStats:
     """Per-iteration record of one level (the JAX package's fields first),
     plus the level's plan and sizes (`bucket_blocks`: blocks per frame row
     of a bucketed plan, 0 dense; `elements`: the E_g elements K·kb·B³, or
     the flat table's last assembly's), its setup and iteration seconds (host
-    clock; every iteration ends on a host read of its costs) and, on the
-    card, its peak allocated bytes."""
+    clock; every iteration ends on a host read of its costs), the seconds
+    of its `LevelPrep` thread (0 without one) and, on the card, its peak
+    allocated bytes."""
 
     costs_before: list
     costs_after: list
@@ -372,6 +518,7 @@ class OptimizeStats:
     eg_chunks: int = 1
     elements: int = 0
     setup_seconds: float = 0.0
+    prefetch_seconds: float = 0.0
     iter_seconds: list = dataclasses.field(default_factory=list)
     peak_bytes: int = 0
     brick_rows: int = 0  # under a mesh: the rank's block rows m
@@ -400,6 +547,7 @@ def optimize_level(
     mesh=None,
     ctx=None,
     eg_sh: Optional[torch.Tensor] = None,
+    prep: Optional[LevelPrep] = None,
 ) -> Tuple[Params, float, OptimizeStats]:
     """Run `cfg.iterations` relinearized GN steps of one (grid, pyramid)
     level on `device`; returns the updated table-order params, the final
@@ -437,6 +585,14 @@ def optimize_level(
     layout, `SpmdStages.svsh`) replaces `voxel_sh`: the multi-device level
     loop (`refine.mesh_pipeline.MeshLevelRunner`) passes both, so the
     level's per-voxel SH is never whole on one rank.
+
+    `prep` (a `LevelPrep` of this grid and pyramid level, block path only)
+    supplies the layout, the plan, the topology and the host statics built
+    in the background: the level joins it (its exception re-raises here),
+    writes `voxel_sh` into the statics and uploads them. The results are
+    bitwise those of the serial build. Its thread's seconds are recorded
+    under `prefetch[p{r}v{n}]`; `level_setup` is this thread's, the wait at
+    the join included. A `budget` given with a prep must be the prep's.
 
     On the card the peak-memory counter is reset at the start, so
     `peak_bytes` is this level's peak. `base_cam` is unused, as in the JAX
@@ -507,27 +663,31 @@ def optimize_level(
         return params, finish(mu), stats
 
     t0 = time.perf_counter()
-    if ctx is not None:
+    inputs = None
+    if prep is not None:
+        prep.join()
+        if prep.grid is not grid or prep.rgbd_level != rgbd_level:
+            raise ValueError(f"the prep is for another level than p{rgbd_level} of this grid")
+        if budget is not None and budget != prep.budget:
+            raise ValueError(f"budget {budget} differs from the prep's {prep.budget}")
+        if ctx is not None and prep.layout is not ctx.layout:
+            raise ValueError("the prep's layout is not the mesh context's")
+        layout, budget, inputs = prep.layout, prep.budget, prep.inputs
+        stats.prefetch_seconds = prep.seconds
+        record_phase(f"prefetch[{tag}]", prep.seconds)
+    elif ctx is not None:
         layout = ctx.layout
     else:
         layout = BlockLayout.build(grid, blocks_multiple=8 if mesh is None else max(8, mesh.size))
     if budget is None:
-        budget = eg_hbm_budget(dev) * (1.0 if mesh is None else mesh.size / mesh.ranks_on_device)
+        budget = level_budget(dev, mesh)
 
     def plan(at_budget):
-        return plan_eg_layout(
-            layout,
-            params.poses.detach().cpu().numpy(),
-            params.intr.detach().cpu().numpy().astype(np.float64) * pyr_scale,
-            cfg,
-            w,
-            h,
-            grid.voxel_size,
-            thres_shell,
-            depths_level.cpu().numpy() if cfg.occlusion_distance > 0.0 else None,
-            budget=at_budget,
-            device=dev,
-        )
+        nonlocal inputs
+        if inputs is None:
+            depths_host = depths_level.cpu().numpy() if cfg.occlusion_distance > 0.0 else None
+            inputs = plan_inputs(params, depths_host, w, h, rgbd_level)
+        return _plan_level(layout, inputs, cfg, grid.voxel_size, thres_shell, at_budget)
 
     def record_plan(fb, reason, eg_chunks):
         stats.reason = reason
@@ -540,17 +700,24 @@ def optimize_level(
                 fb.shape[1], layout.num_blocks, 100.0 * fb.shape[1] / layout.num_blocks, reason,
             )
 
-    fb, reason, eg_chunks = plan(budget)
-    topo = level_topology(grid) if topo is None else topo
+    fb, reason, eg_chunks = prep.plan if prep is not None else plan(budget)
+    # the host statics; under a mesh with `eg_sh` they carry zero SH (the
+    # rank's own per-voxel SH replaces them on the card)
+    sh = voxel_sh if eg_sh is None else None
+    if prep is not None and prep.static is not None:
+        host = prep.static if sh is None else fill_voxel_sh(prep.static, layout, sh)
+    else:
+        topo = level_topology(grid) if topo is None else topo
+        host = level_static_host(layout, grid, topo, sh)
     if mesh is None:
         level = prepare_level(
-            grid, topo, voxel_sh, params, cfg, thres_shell, w, h,
+            grid, None, None, params, cfg, thres_shell, w, h,
             lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale, device=dev,
-            layout=layout, bmap=fb, eg_chunks=eg_chunks,
+            layout=layout, bmap=fb, eg_chunks=eg_chunks, static=host,
         )
         bparams = level.params
     else:
-        level = _spmd_level(mesh, ctx, layout, grid, topo, voxel_sh, eg_sh, cfg, thres_shell, pyr_scale, w, h,
+        level = _spmd_level(mesh, ctx, layout, grid, host, eg_sh, cfg, thres_shell, pyr_scale, w, h,
                             fb, eg_chunks, depths_level, images_level, cg_iters, cg_coeff_dtype, cg_eta)
         bparams = level.begin(
             params._replace(sdf=table_to_dense(layout, params.sdf), albedo=table_to_dense(layout, params.albedo))
@@ -613,17 +780,16 @@ def optimize_level(
     return params_from_block(layout, bparams), finish(mu), stats
 
 
-def _spmd_level(mesh, ctx, layout, grid, topo, voxel_sh, eg_sh, cfg, thres_shell, pyr_scale, w, h, fb, eg_chunks,
+def _spmd_level(mesh, ctx, layout, grid, host, eg_sh, cfg, thres_shell, pyr_scale, w, h, fb, eg_chunks,
                 depths_level, images_level, cg_iters, cg_coeff_dtype, cg_eta):
-    """This rank's `SpmdLevel` of one level: the statics built on the host
-    and sliced to the rank's brick; with `eg_sh` the per-voxel SH is the
-    rank's own and the host statics carry zeros in its place."""
+    """This rank's `SpmdLevel` of one level: the host statics `host` (zero
+    SH with `eg_sh`, the rank's own per-voxel SH) sliced to the rank's
+    brick. It places tensors on the card, so it runs on the main thread
+    after a prep's join."""
     from intrinsic3d_torch.parallel.spmd import SpmdLevel
 
-    if eg_sh is not None:
-        voxel_sh = np.zeros((grid.num_voxels, 9), np.float32)
     return SpmdLevel(
-        mesh, layout, build_level_static(layout, grid, topo, voxel_sh, device="cpu"), depths_level, images_level,
+        mesh, layout, upload_level_static(host, "cpu"), depths_level, images_level,
         num_obs=cfg.num_observations, width=w, height=h, pyr_scale=float(pyr_scale),
         voxel_size=float(grid.voxel_size), truncation=float(grid.truncation), thres_shell=float(thres_shell),
         occlusion_distance=float(cfg.occlusion_distance), fix_poses=cfg.fix_poses,

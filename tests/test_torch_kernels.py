@@ -382,6 +382,48 @@ def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
     np.testing.assert_allclose(tg.color, cg.color, atol=0.5)
 
 
+@pytest.mark.cuda
+def test_level_with_a_prep_on_the_card_matches_the_serial_level(cuda_device):
+    """One frame-bucketed level of the small sphere problem on the card, its
+    host half built by a `LevelPrep` thread (started before and joined in
+    `optimize_level`) and serially: the same plan, bucket width and chunks,
+    first cost within rtol 1e-6 (the same inputs through atomic
+    scatter-adds), costs rtol 1e-3 after it, K1a, K1b and K2 launched by
+    both runs, and no prep thread left."""
+    import threading
+
+    from intrinsic3d_torch.config import RefinementConfig
+    from intrinsic3d_torch.prefetch import HostPrep
+    from intrinsic3d_torch.refine import optimizer as opt
+    from intrinsic3d_torch.synthetic import build_sphere_problem
+
+    cfg = RefinementConfig(num_observations=2, occlusion_distance=0.04, fix_poses=False, frame_bucketing="always",
+                           iterations=2, lm_steps=4)
+    tp = build_sphere_problem(voxel_size=0.015, image_size=(64, 48), num_frames=3, num_observations=2,
+                              perturb_sdf=0.002, perturb_albedo=0.05, cfg=cfg, device=cuda_device)
+    runs = {}
+    for with_prep in (True, False):
+        grid = tp.grid.clone()
+        prep = None
+        if with_prep:
+            prep = opt.LevelPrep(grid, None, tp.params, cfg, tp.depths.cpu().numpy(), tp.thres_shell, 0,
+                                 budget=opt.level_budget(cuda_device))
+        build.reset_launches()
+        _, _, st = opt.optimize_level(grid, None, tp.params, cfg, tp.cam, tp.depths, tp.images, tp.voxel_sh,
+                                      tp.thres_shell, 0, cg_iters=4, device=cuda_device, prep=prep)
+        runs[with_prep] = (st, dict(build.LAUNCHES))
+    (a, la), (b, lb) = runs[True], runs[False]
+    assert (a.reason, a.bucket_blocks, a.eg_chunks, a.num_blocks) == (b.reason, b.bucket_blocks, b.eg_chunks,
+                                                                      b.num_blocks)
+    assert a.bucket_blocks > 0 and a.prefetch_seconds > 0.0 and b.prefetch_seconds == 0.0
+    np.testing.assert_allclose(a.costs_before[0], b.costs_before[0], rtol=1e-6)
+    np.testing.assert_allclose(a.costs_before + a.costs_after, b.costs_before + b.costs_after, rtol=1e-3)
+    for launches in (la, lb):
+        assert launches["bicubic_rows_fwd"] > 0 and launches["bicubic_rows_fwdgrad"] > 0
+        assert launches["nearest_rows"] > 0
+    assert not [t for t in threading.enumerate() if t.name.startswith(HostPrep.THREAD_PREFIX)]
+
+
 # ---------------------------------------------------------------------------
 # What runs without a card
 # ---------------------------------------------------------------------------

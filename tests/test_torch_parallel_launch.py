@@ -84,6 +84,28 @@ def test_streamed_mesh_level_tracks_the_single_device(tmp_path):
         assert all(c1 <= c0 for c0, c1 in zip(got["costs_before"], got["costs_after"]))
 
 
+def test_mesh_prefetch_is_bitwise_the_serial_build(tmp_path):
+    """`Intrinsic3D(mesh=)` on two gloo ranks over CPU tensors, the level
+    preps on (each rank's statics, plan and stencil tables built on a thread
+    during the sharded SVSH) and off, both in one launch: on every rank the
+    refined fields and each level's costs are bit for bit the same."""
+    import numpy as np
+
+    scene, cfg = dryrun.sphere_scene(), dryrun.MESH_LOOP_CFG
+    calls = [(name, dryrun.mesh_loop_task, (scene, cfg), dict(single=False, prefetch=on))
+             for name, on in (("on", True), ("off", False))]
+    out = dryrun.launch(dryrun.run_tasks, 2, backend="gloo", device="cpu",
+                        init_method=f"file://{tmp_path}/rendezvous", args=(calls,), timeout=300.0)
+    for r in out:
+        on, off = r["on"]["mesh"], r["off"]["mesh"]
+        for key in ("coords", "sdf_refined", "albedo", "color"):
+            np.testing.assert_array_equal(on[key], off[key], err_msg=key)
+        assert on["voxel_size"] == off["voxel_size"]
+        assert [lv["level"] for lv in on["levels"]] == ["g1p0", "g0p0"]
+        assert on["levels"] == off["levels"]
+    assert out[0]["on"]["mesh"]["levels"] == out[1]["on"]["mesh"]["levels"]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
