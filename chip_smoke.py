@@ -1042,7 +1042,7 @@ def prefetch_phase(fusion: dict, main: dict) -> dict:
                          medians={lv["level"]: statistics.median(lv["iter_s"]) for lv in run["levels"]},
                          first_cost=got))
         del run
-    log("  level pipeline A/B (off, on, on, off; host wall clock, the device synchronized at every phase end; "
+    log("  level pipeline A/B (off, on, on, off; host wall clock, no synchronize at a phase's end; "
         "prefetch and upsample_prep are the threads' own seconds, overlapped):")
     for r in runs:
         log(f"    prefetch {'on ' if r['prefetch'] else 'off'}: refinement {r['total_s']:.4f}s; "

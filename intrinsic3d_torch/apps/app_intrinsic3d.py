@@ -62,7 +62,8 @@ def make_callback(cfg: RefinementConfig, sensor, engine: Intrinsic3D, stats: Opt
 
 def main(argv=None, device="cuda", stats: Optional[dict] = None):
     """When `stats` is a dict, it receives the engine's phase seconds
-    (`Intrinsic3D`'s) and the callback's `exports` seconds."""
+    (`Intrinsic3D`'s, host clock: no phase end synchronizes the device) and
+    the callback's `exports` seconds."""
     args = make_parser("Joint appearance and geometry refinement").parse_args(argv)
     setup_logging(args.verbose)
     sensor = load_sensor(args.sensor)

@@ -132,8 +132,8 @@ def main(argv=None, device="cuda") -> dict:
             PIPELINE_REFINEMENT, num_grid_levels=args.levels, num_observations=args.num_obs,
             iterations=args.iters, frame_bucketing=mode,
         )
-        # a `stats` dict makes the engine synchronize the device at every
-        # phase end, so the recorded phases are the device's seconds
+        # the engine's phases, host-clock seconds (no phase end synchronizes
+        # the device; the stage's own seconds end on a synchronize below)
         stats = {}
         engine = Intrinsic3D(cfg, sensor, kf_ids, cg_iters=PIPELINE_CG_ITERS, device=dev,
                              cg_coeff_dtype=args.cg_dtype, stats=stats)

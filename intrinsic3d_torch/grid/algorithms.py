@@ -34,6 +34,7 @@ from intrinsic3d_torch.grid.voxel_grid import (
 )
 from intrinsic3d_torch.ops.distance_transform import correct_sdf_dense
 from intrinsic3d_torch.prefetch import HostPrep
+from intrinsic3d_torch.timer import span
 
 _NB26 = full_neighborhood_offsets(1)
 _NB26_DIST = np.linalg.norm(_NB26.astype(np.float64), axis=-1).astype(np.float32)
@@ -368,7 +369,8 @@ def upsample(grid: VoxelGrid, prep: Optional["UpsamplePrep"] = None) -> VoxelGri
     fields trilinearly resampled from the parent grid
     (``algorithms.cpp:202-237``). Host numpy. `prep` (an `UpsamplePrep` of
     this grid) supplies the coordinates-only part built in the background;
-    the result is bitwise the same."""
+    the result is bitwise the same. The field resampling runs in an
+    `upsample.fields` span (`timer.span`)."""
     if prep is not None:
         if not prep.ok(grid):
             raise ValueError("the upsample prep belongs to another grid, or its child grid was already returned")
@@ -376,7 +378,8 @@ def upsample(grid: VoxelGrid, prep: Optional["UpsamplePrep"] = None) -> VoxelGri
         idx, up, order = prep.idx, prep.up, prep.order
     else:
         idx, up, order = _upsample_skeleton(grid)
-    fields = _upsample_fields(grid, idx=idx)
+    with span("upsample.fields"):
+        fields = _upsample_fields(grid, idx=idx)
     up.sdf = fields["sdf"][order].astype(np.float32)
     up.weight = fields["weight"][order].astype(np.float32)
     up.color = fields["color"][order].astype(np.float32)

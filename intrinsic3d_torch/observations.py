@@ -22,6 +22,7 @@ import torch
 from intrinsic3d_torch.camera import Camera, project
 from intrinsic3d_torch.mathutil import robust_kernel, transform_points
 from intrinsic3d_torch.ops.bicubic import nearest_rows
+from intrinsic3d_torch.timer import HOST_READS
 
 
 def observation_weight(pt_cam, normal_cam, d):
@@ -80,6 +81,8 @@ def compute_observations_batch(
     ).reshape(k, d)
 
     z = pt[..., 2]
+    if isinstance(occlusion_distance, torch.Tensor):
+        HOST_READS["occlusion_test"] += 1  # the device assembly's: read to the host below
     if float(occlusion_distance) > 0.0:
         visible = (depth > 0.0) & (torch.abs(depth - z) <= occlusion_distance)
     else:

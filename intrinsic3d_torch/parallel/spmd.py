@@ -470,16 +470,20 @@ class SpmdLevel:
         return out
 
     def step(self, bparams_s: Params, lambdas, mu):
-        """One outer iteration on the rank's brick. Returns (params', cost0,
-        cost1, mu', tries), params' in the rank's form — feed it back in."""
+        """One outer iteration on the rank's brick (its assembly in a
+        `solve.assemble` span, as `optimizer.fused_outer_step`'s). Returns
+        (params', cost0, cost1, mu', tries), params' in the rank's form —
+        feed it back in."""
         from intrinsic3d_torch.refine.device_assembly import device_assembly
         from intrinsic3d_torch.refine.solver import gn_iteration
+        from intrinsic3d_torch.timer import span
 
         dev = self.mesh.device
-        basm, bmasks = device_assembly(
-            self._stat, self.ctx.sdf_plan_s, self.ctx.alb_plan_s, bparams_s, self._depths, self._images,
-            *self._scalars, lambdas, **self._assembly_kw, bmap=self._bmap, device=dev, mesh=self.mesh,
-        )
+        with span("solve.assemble"):
+            basm, bmasks = device_assembly(
+                self._stat, self.ctx.sdf_plan_s, self.ctx.alb_plan_s, bparams_s, self._depths, self._images,
+                *self._scalars, lambdas, **self._assembly_kw, bmap=self._bmap, device=dev, mesh=self.mesh,
+            )
         return gn_iteration(bparams_s, basm, bmasks, mu, **self._solver_kw, device=dev, mesh=self.mesh)
 
     def finish(self, bparams_s: Params) -> Params:

@@ -18,6 +18,10 @@ Rules every prep keeps, so that the overlap changes no result:
   main thread after `join`;
 - `join` re-raises the thread's exception on the calling thread: a failing
   prep fails the level rather than hide behind a slower serial rebuild;
+  it waits under a `join[<thread name>]` span (`timer.span`), so a
+  profiler's timeline names the main thread's wait for a prep. A prep
+  thread that waits for another calls `wait` and `result`, which open no
+  span;
 - the products are bitwise what the serial path builds, because both run
   the same host functions on the same inputs.
 """
@@ -27,13 +31,17 @@ from __future__ import annotations
 import threading
 import time
 
+from intrinsic3d_torch.timer import span
+
 
 class HostPrep:
     """Runs `self._prepare()` on a daemon thread from construction on.
 
     `seconds` is the thread's own wall clock (set when it ends), `join()`
-    waits for it and re-raises its exception, `wait()` only waits (for
-    clean-up paths that must not mask another exception)."""
+    waits for it under a `join[<thread name>]` span and re-raises its
+    exception, `wait()` only waits (for clean-up paths that must not mask
+    another exception, and for a prep thread waiting for another), and
+    `result()` re-raises the exception of an ended thread."""
 
     THREAD_PREFIX = "i3d-prep"
 
@@ -63,8 +71,12 @@ class HostPrep:
         self._thread.join()
         return self
 
-    def join(self) -> "HostPrep":
-        self._thread.join()
+    def result(self) -> "HostPrep":
         if self._exc is not None:
             raise self._exc
         return self
+
+    def join(self) -> "HostPrep":
+        with span(f"join[{self._thread.name}]"):
+            self._thread.join()
+        return self.result()

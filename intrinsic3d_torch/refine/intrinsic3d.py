@@ -17,13 +17,15 @@ during its lighting estimate (`optimizer.LevelPrep`), the next pyramid
 level's plan during the recolor, and the grid-level boundary's upsample and
 sparsify index tables during the solve (`grid.algorithms.UpsamplePrep`);
 the results are bitwise those of the serial path (`prefetch=False`).
+Every phase is a `timer.span` on the main thread, so a profiler's timeline
+names what the host does between the card's work; nothing here synchronizes
+the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -44,21 +46,9 @@ from intrinsic3d_torch.observations import collect_observations, recolor
 from intrinsic3d_torch.refine.assembly import level_topology
 from intrinsic3d_torch.refine.optimizer import LevelPrep, OptimizeStats, level_budget, optimize_level
 from intrinsic3d_torch.refine.residuals import Params
-from intrinsic3d_torch.timer import record_phase
+from intrinsic3d_torch.timer import collect, record_phase, span
 
 log = logging.getLogger("intrinsic3d")
-
-
-def record_level(stats: Optional[dict], ostats: OptimizeStats, prefetched: bool, tag: str) -> None:
-    """A level's phases into the `stats` dict, in the order `optimize_level`
-    records them with `timer.record_phase`: its `LevelPrep` thread's
-    seconds (when it had one), its setup and its solve."""
-    if stats is None:
-        return
-    if prefetched:
-        stats[f"prefetch[{tag}]"] = ostats.prefetch_seconds
-    stats[f"level_setup[{tag}]"] = ostats.setup_seconds
-    stats[f"solve[{tag}]"] = sum(ostats.iter_seconds)
 
 
 @dataclasses.dataclass
@@ -78,16 +68,17 @@ class Intrinsic3D:
 
     `cg_coeff_dtype` and `cg_eta` pass through to every level's
     `optimize_level` (the JAX driver runs their defaults). The constructor
-    and `refine` time each phase once under the JAX package's phase names
-    (plus `topology[g*]`, the level's host stencil tables; the JAX program's
-    `first_dispatch` has no counterpart) and record it with
-    `timer.record_phase`, as the JAX driver does (`optimize_level` records
-    the levels' `level_setup` and `solve`). When `stats` is a dict they also
-    put each phase there under the same name, and then synchronize the
-    device at every phase end so the seconds are the device's; without it
-    the queue is left alone. With `prefetch`, the background preps' own
-    thread seconds are recorded too, under `prefetch[p*v*]` (the JAX
-    package's name) and `upsample_prep[g*]`."""
+    and `refine` run each phase in a `timer.span` under the JAX package's
+    phase names (plus `topology[g*]`, the level's host stencil tables; the
+    JAX program's `first_dispatch` has no counterpart), which records its
+    host-clock seconds with `timer.record_phase`, as the JAX driver does
+    (`optimize_level` records the levels' `level_setup` and `solve`). When
+    `stats` is a dict they also put each phase there under the same name
+    (`timer.collect`). The device is never synchronized at a phase's end:
+    a phase's seconds are the host's, and its device side is read from a
+    profiler's trace, inside the span. With `prefetch`, the background
+    preps' own thread seconds are recorded too, under `prefetch[p*v*]` (the
+    JAX package's name) and `upsample_prep[g*]`."""
 
     def __init__(
         self,
@@ -141,37 +132,26 @@ class Intrinsic3D:
         self.intr0 = np.asarray([float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy)], np.float32)
         self.dist0 = np.zeros(5, np.float32)
 
-        t0 = time.perf_counter()
-        colors_np = np.stack([np.asarray(sensor.color(i), np.float32) for i in self.keyframe_ids])  # [K, H, W, 3]
-        depths_np = np.stack([np.asarray(sensor.depth(i), np.float32) for i in self.keyframe_ids])
-        self.poses0 = np.stack(
-            [pose_matrix_to_vec(invert_pose(sensor.pose(i))) for i in self.keyframe_ids]
-        ).astype(np.float32)  # [K, 6] world→cam
-        dev = self.device
-        colors = torch.as_tensor(colors_np, device=dev)
-        depths = resize_depth(sensor.depth_cam, torch.as_tensor(depths_np, device=dev), cam)
-        self.depths_lvl = [depths]
-        self.intens_lvl = [rgb_intensity(colors)]
-        for _ in range(1, cfg.num_rgbd_levels):
-            colors = pyr_down(colors)
-            self.intens_lvl.append(rgb_intensity(colors))
-            self.depths_lvl.append(depth_down(self.depths_lvl[-1]))
-        self.colors0 = torch.as_tensor(np.clip(colors_np * 255.0, 0.0, 255.0).astype(np.uint8), device=dev)
-        self._phase_end(stats, "pyramids", t0)
+        with collect(stats), span("pyramids", phase=True):
+            colors_np = np.stack([np.asarray(sensor.color(i), np.float32) for i in self.keyframe_ids])  # [K, H, W, 3]
+            depths_np = np.stack([np.asarray(sensor.depth(i), np.float32) for i in self.keyframe_ids])
+            self.poses0 = np.stack(
+                [pose_matrix_to_vec(invert_pose(sensor.pose(i))) for i in self.keyframe_ids]
+            ).astype(np.float32)  # [K, 6] world→cam
+            dev = self.device
+            colors = torch.as_tensor(colors_np, device=dev)
+            depths = resize_depth(sensor.depth_cam, torch.as_tensor(depths_np, device=dev), cam)
+            self.depths_lvl = [depths]
+            self.intens_lvl = [rgb_intensity(colors)]
+            for _ in range(1, cfg.num_rgbd_levels):
+                colors = pyr_down(colors)
+                self.intens_lvl.append(rgb_intensity(colors))
+                self.depths_lvl.append(depth_down(self.depths_lvl[-1]))
+            self.colors0 = torch.as_tensor(np.clip(colors_np * 255.0, 0.0, 255.0).astype(np.uint8), device=dev)
         log.info("   frame pyramids of %d keyframes built", len(self.keyframe_ids))
 
     def add_callback(self, cb: Callable[[RefinementInfo], None]):
         self.callbacks.append(cb)
-
-    def _phase_end(self, stats: Optional[dict], name: str, t0: float) -> None:
-        """The phase's seconds into both sinks: `timer.record_phase` and,
-        when given, the `stats` dict (the device synchronized first)."""
-        if stats is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        seconds = time.perf_counter() - t0
-        record_phase(name, seconds)
-        if stats is not None:
-            stats[name] = seconds
 
     def _start(self, prep):
         """Track a started prep, so that `refine` joins it on every exit
@@ -274,7 +254,7 @@ class Intrinsic3D:
     # ------------------------------------------------------------------
 
     def _refine_grid_level(self, grid: VoxelGrid, params: Params, mu, nbr4, thres_shell: float, grid_lvl: int,
-                           coarsest: int, stats: Optional[dict]):
+                           coarsest: int):
         """The pyramid levels of one grid level on one device: lighting,
         `optimize_level`, recolor and write-back, callbacks. With
         `prefetch`, the level preps start where the JAX level loop starts them
@@ -291,17 +271,16 @@ class Intrinsic3D:
                 # while the lighting estimate below runs
                 prep = self._level_prep(grid, None, params, thres_shell, rgbd_lvl)
             # lighting estimation (``intrinsic3d.cpp:250-270``)
-            t0 = time.perf_counter()
-            self._write_back(grid, params)
-            svsh, voxel_sh = estimate_svsh(
-                grid, cfg.subvolume_size_sh, cfg.subvolume_sh_lambda_reg, thres_shell, weighted=True,
-                with_voxel_sh=True, nbr4=nbr4, device=self.device,
-            )
+            with span(f"svsh[g{grid_lvl}p{rgbd_lvl}]", phase=True):
+                self._write_back(grid, params)
+                svsh, voxel_sh = estimate_svsh(
+                    grid, cfg.subvolume_size_sh, cfg.subvolume_sh_lambda_reg, thres_shell, weighted=True,
+                    with_voxel_sh=True, nbr4=nbr4, device=self.device,
+                )
             if svsh is None:
                 log.warning("lighting estimation failed on level %d", grid_lvl)
                 break
             self.lighting = svsh
-            self._phase_end(stats, f"svsh[g{grid_lvl}p{rgbd_lvl}]", t0)
 
             if self.prefetch and grid_lvl > 0 and bprep is None:
                 # the boundary's coordinates-only structure, built while the
@@ -312,7 +291,6 @@ class Intrinsic3D:
                 self.intens_lvl[rgbd_lvl], voxel_sh, thres_shell, rgbd_lvl, mu0=mu, cg_iters=self.cg_iters,
                 device=self.device, prep=prep, **self.solver_kw,
             )
-            record_level(stats, ostats, prep is not None, f"p{rgbd_lvl}v{grid.num_voxels}")
             next_r = rgbd_lvl - 1
             if self.prefetch and next_r >= 0 and (grid_lvl == coarsest or next_r == 0):
                 # the next pyramid level's plan, on this level's layout, while
@@ -323,11 +301,10 @@ class Intrinsic3D:
                 prep = None
 
             # finish rgbd level (``intrinsic3d.cpp:353-378``)
-            t0 = time.perf_counter()
-            self._write_back(grid, params)
-            self.recompute_colors(grid, params, nbr4=nbr4)
-            self._update_sensor(params)
-            self._phase_end(stats, f"recolor[g{grid_lvl}p{rgbd_lvl}]", t0)
+            with span(f"recolor[g{grid_lvl}p{rgbd_lvl}]", phase=True):
+                self._write_back(grid, params)
+                self.recompute_colors(grid, params, nbr4=nbr4)
+                self._update_sensor(params)
 
             info = RefinementInfo(
                 grid_level=grid_lvl,
@@ -348,26 +325,26 @@ class Intrinsic3D:
         """Run the full double coarse-to-fine refinement
         (``intrinsic3d.cpp:206-295``). Returns the refined (finest) grid.
         Every background prep it starts is joined before it returns or
-        raises."""
+        raises. When `stats` is a dict, it receives every phase's seconds."""
         try:
-            return self._refine(fused, stats)
+            with collect(stats):
+                return self._refine(fused)
         finally:
             for prep in self._preps:
                 prep.wait()
             self._preps.clear()
 
-    def _refine(self, fused: VoxelGrid, stats: Optional[dict]) -> VoxelGrid:
+    def _refine(self, fused: VoxelGrid) -> VoxelGrid:
         cfg = self.cfg
         grid = fused.to_sbr() if not fused.is_sbr else fused
         params = self._params(
             grid, self._tensor(self.poses0), self._tensor(self.intr0), self._tensor(self.dist0)
         )
-        t0 = time.perf_counter()
-        if self.mesh is not None:
-            self._initial_recolor_mesh(grid, params)
-        else:
-            self.recompute_colors(grid, params)
-        self._phase_end(stats, "initial_recolor", t0)
+        with span("initial_recolor", phase=True):
+            if self.mesh is not None:
+                self._initial_recolor_mesh(grid, params)
+            else:
+                self.recompute_colors(grid, params)
 
         mu = 1e-4
         coarsest = cfg.num_grid_levels - 1
@@ -382,47 +359,41 @@ class Intrinsic3D:
                 )
             thres_shell = factor * grid.voxel_size
             if cfg.clear_distant_voxels:
-                t0 = time.perf_counter()
-                shell = bprep.shell_for(grid) if bprep is not None else None
-                grid = alg.clear_voxels_outside_thin_shell(grid, thres_shell, device=self.device, shell=shell)
-                self._phase_end(stats, f"sparsify[g{grid_lvl}]", t0)
+                with span(f"sparsify[g{grid_lvl}]", phase=True):
+                    shell = bprep.shell_for(grid) if bprep is not None else None
+                    grid = alg.clear_voxels_outside_thin_shell(grid, thres_shell, device=self.device, shell=shell)
                 log.info("   sparsified to %d voxels", grid.num_voxels)
                 params = self._params(grid, params.poses, params.intr, params.dist)
             bprep = None
             # the level's stencil tables: with `prefetch` the main thread
             # builds only the normal stencil (SVSH, recolor) and the level
             # preps build the rest (`level_topology`, memoized per grid)
-            t0 = time.perf_counter()
-            if self.prefetch:
-                topo = None
-                nbr4 = grid.neighbor_table(NORMAL_OFFSETS) if self.mesh is None else None
-            else:
-                topo = level_topology(grid)
-                nbr4 = topo.nbr4_idx
-            self._phase_end(stats, f"topology[g{grid_lvl}]", t0)
+            with span(f"topology[g{grid_lvl}]", phase=True):
+                if self.prefetch:
+                    topo = None
+                    nbr4 = grid.neighbor_table(NORMAL_OFFSETS) if self.mesh is None else None
+                else:
+                    topo = level_topology(grid)
+                    nbr4 = topo.nbr4_idx
 
             if self.mesh is not None:
                 # every device stage of the level loop sharded over the mesh
                 from intrinsic3d_torch.refine.mesh_pipeline import MeshLevelRunner
 
                 runner = MeshLevelRunner(self, grid, topo, thres_shell, grid_lvl, coarsest)
-                params, mu = runner.run(params, mu, self.cg_iters, stats=stats)
+                params, mu = runner.run(params, mu, self.cg_iters)
                 self.mesh_placements.append(runner.placement)
             else:
-                params, mu, bprep = self._refine_grid_level(grid, params, mu, nbr4, thres_shell, grid_lvl, coarsest,
-                                                            stats)
+                params, mu, bprep = self._refine_grid_level(grid, params, mu, nbr4, thres_shell, grid_lvl, coarsest)
 
             # finish grid level: ×2 upsample (``intrinsic3d.cpp:320-333``)
             if grid_lvl > 0:
-                t0 = time.perf_counter()
-                self._write_back(grid, params)
-                grid = alg.upsample(grid, prep=bprep)
-                self._phase_end(stats, f"upsample[g{grid_lvl}]", t0)
+                with span(f"upsample[g{grid_lvl}]", phase=True):
+                    self._write_back(grid, params)
+                    grid = alg.upsample(grid, prep=bprep)
                 if bprep is not None:
                     # the prep's own thread seconds, overlapped with the solve
                     record_phase(f"upsample_prep[g{grid_lvl}]", bprep.seconds)
-                    if stats is not None:
-                        stats[f"upsample_prep[g{grid_lvl}]"] = bprep.seconds
                 params = self._params(grid, params.poses, params.intr, params.dist)
 
         self._write_back(grid, params)

@@ -42,6 +42,7 @@ from intrinsic3d_torch.parallel.spmd_stages import SpmdStages, place_block_param
 from intrinsic3d_torch.refine.assembly import LevelTopology
 from intrinsic3d_torch.refine.optimizer import optimize_level
 from intrinsic3d_torch.refine.residuals import Params
+from intrinsic3d_torch.timer import span
 
 log = logging.getLogger("intrinsic3d")
 
@@ -92,14 +93,14 @@ class MeshLevelRunner:
 
     # -- the level loop -------------------------------------------------------
 
-    def run(self, params: Params, mu: float, cg_iters: int, stats=None):
+    def run(self, params: Params, mu: float, cg_iters: int):
         """All pyramid levels of this grid level. Returns (table params, mu).
 
         Mirrors the single-device `Intrinsic3D._refine_grid_level`
         (``intrinsic3d.cpp:242-295``) with every full-grid device stage
-        sharded. `stats` (a dict) receives the phase seconds under the
-        single-device names."""
-        from intrinsic3d_torch.refine.intrinsic3d import RefinementInfo, record_level
+        sharded; its phases are `timer.span`s under the single-device
+        names."""
+        from intrinsic3d_torch.refine.intrinsic3d import RefinementInfo
 
         engine = self.engine
         cfg = engine.cfg
@@ -131,30 +132,28 @@ class MeshLevelRunner:
                     if engine.prefetch else None)
 
             # lighting estimation, sharded (``intrinsic3d.cpp:250-270``)
-            t0 = time.perf_counter()
-            svsh, eg_sh_dev = self.stages.svsh(bparams_s, color_bd, cfg.subvolume_sh_lambda_reg, self.thres_shell)
+            with span(f"svsh[g{self.grid_lvl}p{rgbd_lvl}]", phase=True):
+                svsh, eg_sh_dev = self.stages.svsh(bparams_s, color_bd, cfg.subvolume_sh_lambda_reg,
+                                                   self.thres_shell)
             if svsh is None:
                 log.warning("lighting estimation failed on level %d", self.grid_lvl)
                 break
             engine.lighting = svsh
-            engine._phase_end(stats, f"svsh[g{self.grid_lvl}p{rgbd_lvl}]", t0)
 
             params, mu, st = optimize_level(
                 grid, self.topo, params, cfg, None, engine.depths_lvl[rgbd_lvl], engine.intens_lvl[rgbd_lvl], None,
                 self.thres_shell, rgbd_lvl, mu0=mu, cg_iters=cg_iters, mesh=self.mesh, ctx=self.ctx,
                 eg_sh=eg_sh_dev, prep=prep, **engine.solver_kw,
             )
-            record_level(stats, st, prep is not None, f"p{rgbd_lvl}v{grid.num_voxels}")
             self.placement += [(f"{name}[pyr{rgbd_lvl}]", total, mine) for name, total, mine in st.placement]
 
             # recolor (sharded) + write-back (``intrinsic3d.cpp:353-378``)
-            t0 = time.perf_counter()
-            bparams_s = place_block_params(self.mesh, self.layout, params)
-            color_bd, has_bd = self.stages.recolor(bparams_s, color_bd)
-            cols, has = self.stages.colors_to_table(color_bd, has_bd)
-            grid.color = np.where(has[:, None], cols, grid.color).astype(np.float32)
-            engine._update_sensor(params)  # reads only the replicated globals
-            engine._phase_end(stats, f"recolor[g{self.grid_lvl}p{rgbd_lvl}]", t0)
+            with span(f"recolor[g{self.grid_lvl}p{rgbd_lvl}]", phase=True):
+                bparams_s = place_block_params(self.mesh, self.layout, params)
+                color_bd, has_bd = self.stages.recolor(bparams_s, color_bd)
+                cols, has = self.stages.colors_to_table(color_bd, has_bd)
+                grid.color = np.where(has[:, None], cols, grid.color).astype(np.float32)
+                engine._update_sensor(params)  # reads only the replicated globals
 
             if engine.callbacks:
                 engine._write_back(grid, params)

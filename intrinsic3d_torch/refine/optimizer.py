@@ -13,11 +13,14 @@ replanned once at 60% of the budget. `prepare_level` builds one level's
 layout, statics and shift plans for a caller that steps it itself.
 `optimize_level(use_blocks=False)` runs the flat-table oracle instead
 (`refine.assembly.build_assembly` + the flat `gn_iteration`). The level's
-setup and solve seconds go to `timer.record_phase` under the JAX package's
-names. `optimize_level(mesh=)` runs the same outer loop on one rank's brick
-of a spatially sharded level (`parallel.spmd.SpmdLevel`). `LevelPrep`
-builds a level's host half (layout, plan, stencil tables, statics with zero
-SH) on a background thread while the caller estimates the lighting, and
+setup and solve are `timer.span` phases under the JAX package's names
+(`level_setup[p*v*]`, `solve[p*v*]`), each outer step's assembly a
+`solve.assemble` span inside the solve, and the solve's device-to-host
+reads are counted in `timer.HOST_READS` (`OptimizeStats.host_reads`).
+`optimize_level(mesh=)` runs the same outer loop on one rank's brick of a
+spatially sharded level (`parallel.spmd.SpmdLevel`). `LevelPrep` builds a
+level's host half (layout, plan, stencil tables, statics with zero SH) on a
+background thread while the caller estimates the lighting, and
 `optimize_level(prep=)` takes it over; the JAX package's program warm-up in
 the same class has no counterpart (the card has no program to load).
 """
@@ -57,7 +60,7 @@ from intrinsic3d_torch.refine.device_assembly import (
 )
 from intrinsic3d_torch.refine.residuals import Params
 from intrinsic3d_torch.refine.solver import gn_iteration
-from intrinsic3d_torch.timer import record_phase
+from intrinsic3d_torch.timer import HOST_READS, host_reads, record_phase, span
 
 log = logging.getLogger("intrinsic3d")
 
@@ -256,33 +259,35 @@ def fused_outer_step(
     re-collect observations and rebuild the problem at the current
     parameters, then relinearize, solve and accept. `bmap` (frame buckets,
     on `device`) passes to `device_assembly`; `cg_coeff_dtype`, `cg_eta` and
-    `eg_chunks` pass through to `gn_iteration`.
+    `eg_chunks` pass through to `gn_iteration`. The assembly runs in a
+    `solve.assemble` span.
 
     Returns (params', cost_before, cost_after, mu', num_tries)."""
-    basm, bmasks = device_assembly(
-        st,
-        sdf_plan,
-        alb_plan,
-        bparams,
-        depths,
-        images,
-        pyr_scale,
-        voxel_size,
-        truncation,
-        thres_shell,
-        occlusion_distance,
-        lambdas,
-        num_obs=num_obs,
-        width=width,
-        height=height,
-        fix_poses=fix_poses,
-        fix_intrinsics=fix_intrinsics,
-        fix_distortion=fix_distortion,
-        use_albedo=use_albedo,
-        bmap=bmap,
-        min_pose_obs=min_pose_obs,
-        device=device,
-    )
+    with span("solve.assemble"):
+        basm, bmasks = device_assembly(
+            st,
+            sdf_plan,
+            alb_plan,
+            bparams,
+            depths,
+            images,
+            pyr_scale,
+            voxel_size,
+            truncation,
+            thres_shell,
+            occlusion_distance,
+            lambdas,
+            num_obs=num_obs,
+            width=width,
+            height=height,
+            fix_poses=fix_poses,
+            fix_intrinsics=fix_intrinsics,
+            fix_distortion=fix_distortion,
+            use_albedo=use_albedo,
+            bmap=bmap,
+            min_pose_obs=min_pose_obs,
+            device=device,
+        )
     return gn_iteration(
         bparams, basm, bmasks, mu, lm_steps, cg_iters,
         cg_coeff_dtype=cg_coeff_dtype, schur_globals=schur_globals, cg_eta=cg_eta, eg_chunks=eg_chunks,
@@ -482,7 +487,7 @@ class LevelPrep(HostPrep):
                 tables.wait()
         if not self.program_only:
             if tables is not None:
-                self.topo = tables.join().topo
+                self.topo = tables.result().topo
             self.static = level_static_host(self.layout, grid, self.topo, None)
 
 
@@ -505,8 +510,10 @@ class OptimizeStats:
     of a bucketed plan, 0 dense; `elements`: the E_g elements K·kb·B³, or
     the flat table's last assembly's), its setup and iteration seconds (host
     clock; every iteration ends on a host read of its costs), the seconds
-    of its `LevelPrep` thread (0 without one) and, on the card, its peak
-    allocated bytes."""
+    of its `LevelPrep` thread (0 without one), its device-to-host reads
+    from its first outer step to its last (`timer.HOST_READS`, every site;
+    the flat table's `.cpu()` pulls of the intrinsics are not counted) and,
+    on the card, its peak allocated bytes."""
 
     costs_before: list
     costs_after: list
@@ -520,6 +527,7 @@ class OptimizeStats:
     setup_seconds: float = 0.0
     prefetch_seconds: float = 0.0
     iter_seconds: list = dataclasses.field(default_factory=list)
+    host_reads: int = 0
     peak_bytes: int = 0
     brick_rows: int = 0  # under a mesh: the rank's block rows m
     halo_rows: tuple = ()  # under a mesh: rows exchanged per active mesh shift
@@ -592,7 +600,8 @@ def optimize_level(
     writes `voxel_sh` into the statics and uploads them. The results are
     bitwise those of the serial build. Its thread's seconds are recorded
     under `prefetch[p{r}v{n}]`; `level_setup` is this thread's, the wait at
-    the join included. A `budget` given with a prep must be the prep's.
+    the join (a `join[...]` span) included. A `budget` given with a prep
+    must be the prep's.
 
     On the card the peak-memory counter is reset at the start, so
     `peak_bytes` is this level's peak. `base_cam` is unused, as in the JAX
@@ -616,6 +625,7 @@ def optimize_level(
 
     def record_iteration(itr, t0, out):
         _, cost0, cost1, mu, tries = out
+        HOST_READS["iteration_record"] += 3  # the costs and the damping below
         stats.costs_before.append(float(cost0))
         stats.costs_after.append(float(cost1))
         stats.tries.append(int(tries))
@@ -627,7 +637,6 @@ def optimize_level(
         )
 
     def finish(mu):
-        record_phase(f"solve[{tag}]", sum(stats.iter_seconds))
         if dev.type == "cuda":
             stats.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
         return float(mu)
@@ -638,49 +647,36 @@ def optimize_level(
         topo = level_topology(grid) if topo is None else topo
         stats.reason = "flat table"
         stats.setup_seconds = time.perf_counter() - t0
-        for itr in range(cfg.iterations):
-            t0 = time.perf_counter()
-            lambda_r, lambda_s = lambdas_at(itr)
-            # observations through the CURRENT intrinsics and distortion
-            intr = params.intr.detach().cpu().numpy()
-            cam_level = Camera.create(
-                intr[0] * pyr_scale, intr[1] * pyr_scale, intr[2] * pyr_scale, intr[3] * pyr_scale, w, h,
-                dist=params.dist.detach().cpu().numpy(),
-            )
-            asm, masks = build_assembly(
-                grid, topo, params, cam_level, depths_level, images_level, voxel_sh, thres_shell,
-                cfg.occlusion_distance, cfg.num_observations, cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a,
-                pyr_scale, cfg.fix_poses, cfg.fix_intrinsics, cfg.fix_distortion, min_pose_obs=cfg.min_pose_obs,
-                device=dev,
-            )
-            stats.elements = int(asm.eg_w.shape[0])
-            out = gn_iteration(
-                params, asm, masks, mu, cfg.lm_steps, cg_iters, schur_globals=cfg.schur_globals, cg_eta=cg_eta,
-                device=dev,
-            )
-            params, mu = out[0], out[3]
-            record_iteration(itr, t0, out)
+        reads0 = host_reads()
+        with span(f"solve[{tag}]", phase=True):
+            for itr in range(cfg.iterations):
+                t0 = time.perf_counter()
+                lambda_r, lambda_s = lambdas_at(itr)
+                with span("solve.assemble"):
+                    # observations through the CURRENT intrinsics and distortion
+                    intr = params.intr.detach().cpu().numpy()
+                    cam_level = Camera.create(
+                        intr[0] * pyr_scale, intr[1] * pyr_scale, intr[2] * pyr_scale, intr[3] * pyr_scale, w, h,
+                        dist=params.dist.detach().cpu().numpy(),
+                    )
+                    asm, masks = build_assembly(
+                        grid, topo, params, cam_level, depths_level, images_level, voxel_sh, thres_shell,
+                        cfg.occlusion_distance, cfg.num_observations, cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a,
+                        pyr_scale, cfg.fix_poses, cfg.fix_intrinsics, cfg.fix_distortion,
+                        min_pose_obs=cfg.min_pose_obs, device=dev,
+                    )
+                stats.elements = int(asm.eg_w.shape[0])
+                out = gn_iteration(
+                    params, asm, masks, mu, cfg.lm_steps, cg_iters, schur_globals=cfg.schur_globals, cg_eta=cg_eta,
+                    device=dev,
+                )
+                params, mu = out[0], out[3]
+                record_iteration(itr, t0, out)
+        stats.host_reads = host_reads() - reads0
         return params, finish(mu), stats
 
-    t0 = time.perf_counter()
     inputs = None
-    if prep is not None:
-        prep.join()
-        if prep.grid is not grid or prep.rgbd_level != rgbd_level:
-            raise ValueError(f"the prep is for another level than p{rgbd_level} of this grid")
-        if budget is not None and budget != prep.budget:
-            raise ValueError(f"budget {budget} differs from the prep's {prep.budget}")
-        if ctx is not None and prep.layout is not ctx.layout:
-            raise ValueError("the prep's layout is not the mesh context's")
-        layout, budget, inputs = prep.layout, prep.budget, prep.inputs
-        stats.prefetch_seconds = prep.seconds
-        record_phase(f"prefetch[{tag}]", prep.seconds)
-    elif ctx is not None:
-        layout = ctx.layout
-    else:
-        layout = BlockLayout.build(grid, blocks_multiple=8 if mesh is None else max(8, mesh.size))
-    if budget is None:
-        budget = level_budget(dev, mesh)
+    layout = None
 
     def plan(at_budget):
         nonlocal inputs
@@ -700,35 +696,53 @@ def optimize_level(
                 fb.shape[1], layout.num_blocks, 100.0 * fb.shape[1] / layout.num_blocks, reason,
             )
 
-    fb, reason, eg_chunks = prep.plan if prep is not None else plan(budget)
-    # the host statics; under a mesh with `eg_sh` they carry zero SH (the
-    # rank's own per-voxel SH replaces them on the card)
-    sh = voxel_sh if eg_sh is None else None
-    if prep is not None and prep.static is not None:
-        host = prep.static if sh is None else fill_voxel_sh(prep.static, layout, sh)
-    else:
-        topo = level_topology(grid) if topo is None else topo
-        host = level_static_host(layout, grid, topo, sh)
-    if mesh is None:
-        level = prepare_level(
-            grid, None, None, params, cfg, thres_shell, w, h,
-            lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale, device=dev,
-            layout=layout, bmap=fb, eg_chunks=eg_chunks, static=host,
-        )
-        bparams = level.params
-    else:
-        level = _spmd_level(mesh, ctx, layout, grid, host, eg_sh, cfg, thres_shell, pyr_scale, w, h,
-                            fb, eg_chunks, depths_level, images_level, cg_iters, cg_coeff_dtype, cg_eta)
-        bparams = level.begin(
-            params._replace(sdf=table_to_dense(layout, params.sdf), albedo=table_to_dense(layout, params.albedo))
-        )
-        stats.brick_rows = level.ctx.m
-        stats.halo_rows = tuple(level.ctx.halo.hs)
-        stats.placement = level.placement()
-    record_plan(fb, reason, eg_chunks)
-    stats.num_blocks = layout.num_blocks
-    stats.setup_seconds = time.perf_counter() - t0
-    record_phase(f"level_setup[{tag}]", stats.setup_seconds)
+    with span(f"level_setup[{tag}]", phase=True) as setup:
+        if prep is not None:
+            prep.join()
+            if prep.grid is not grid or prep.rgbd_level != rgbd_level:
+                raise ValueError(f"the prep is for another level than p{rgbd_level} of this grid")
+            if budget is not None and budget != prep.budget:
+                raise ValueError(f"budget {budget} differs from the prep's {prep.budget}")
+            if ctx is not None and prep.layout is not ctx.layout:
+                raise ValueError("the prep's layout is not the mesh context's")
+            layout, budget, inputs = prep.layout, prep.budget, prep.inputs
+            stats.prefetch_seconds = prep.seconds
+            record_phase(f"prefetch[{tag}]", prep.seconds)
+        elif ctx is not None:
+            layout = ctx.layout
+        else:
+            layout = BlockLayout.build(grid, blocks_multiple=8 if mesh is None else max(8, mesh.size))
+        if budget is None:
+            budget = level_budget(dev, mesh)
+
+        fb, reason, eg_chunks = prep.plan if prep is not None else plan(budget)
+        # the host statics; under a mesh with `eg_sh` they carry zero SH (the
+        # rank's own per-voxel SH replaces them on the card)
+        sh = voxel_sh if eg_sh is None else None
+        if prep is not None and prep.static is not None:
+            host = prep.static if sh is None else fill_voxel_sh(prep.static, layout, sh)
+        else:
+            topo = level_topology(grid) if topo is None else topo
+            host = level_static_host(layout, grid, topo, sh)
+        if mesh is None:
+            level = prepare_level(
+                grid, None, None, params, cfg, thres_shell, w, h,
+                lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale,
+                device=dev, layout=layout, bmap=fb, eg_chunks=eg_chunks, static=host,
+            )
+            bparams = level.params
+        else:
+            level = _spmd_level(mesh, ctx, layout, grid, host, eg_sh, cfg, thres_shell, pyr_scale, w, h,
+                                fb, eg_chunks, depths_level, images_level, cg_iters, cg_coeff_dtype, cg_eta)
+            bparams = level.begin(
+                params._replace(sdf=table_to_dense(layout, params.sdf), albedo=table_to_dense(layout, params.albedo))
+            )
+            stats.brick_rows = level.ctx.m
+            stats.halo_rows = tuple(level.ctx.halo.hs)
+            stats.placement = level.placement()
+        record_plan(fb, reason, eg_chunks)
+        stats.num_blocks = layout.num_blocks
+    stats.setup_seconds = setup.seconds
     log.info(
         "   level setup: %.2fs (%d blocks, %d voxels, %d elements, %s)",
         stats.setup_seconds, layout.num_blocks, grid.num_voxels, stats.elements, reason,
@@ -738,43 +752,47 @@ def optimize_level(
         lm_steps=cfg.lm_steps, cg_iters=cg_iters, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs,
         cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta,
     )
-    for itr in range(cfg.iterations):
-        t0 = time.perf_counter()
-        lambda_r, lambda_s = lambdas_at(itr)
-        lambdas = torch.tensor([cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a], dtype=torch.float32, device=dev)
-        if mesh is not None:
-            out = level.step(bparams, lambdas, mu)
+    reads0 = host_reads()
+    with span(f"solve[{tag}]", phase=True):
+        for itr in range(cfg.iterations):
+            t0 = time.perf_counter()
+            lambda_r, lambda_s = lambdas_at(itr)
+            lambdas = torch.tensor([cfg.lambda_g, lambda_r, lambda_s, cfg.lambda_a], dtype=torch.float32,
+                                   device=dev)
+            if mesh is not None:
+                out = level.step(bparams, lambdas, mu)
+                bparams, mu = out[0], out[3]
+                record_iteration(itr, t0, out)
+                continue
+            out_of_memory = None
+            try:
+                out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
+            except torch.cuda.OutOfMemoryError as exc:
+                if itr != 0:
+                    raise
+                out_of_memory = str(exc)
+            if out_of_memory is not None:
+                # the plan exceeded the card's real memory (mis-calibrated
+                # constants): with the failed attempt's tensors released (the
+                # exception and its frames are gone here), replan at 60% of the
+                # budget — more chunks, or the frame cap — and retry ONCE
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                log.warning(
+                    "level step exhausted device memory (%s...); replanning the E_g layout at 60%% budget",
+                    out_of_memory[:200],
+                )
+                fb, reason, eg_chunks = plan(0.6 * budget)
+                log.warning(
+                    "  retry layout: %s (%s, %d chunks)",
+                    "dense" if fb is None else f"{fb.shape[1]} blocks/frame", reason, eg_chunks,
+                )
+                record_plan(fb, reason, eg_chunks)
+                level = level._replace(bmap=_bmap_on(fb, dev), eg_chunks=eg_chunks)
+                out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
             bparams, mu = out[0], out[3]
             record_iteration(itr, t0, out)
-            continue
-        out_of_memory = None
-        try:
-            out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
-        except torch.cuda.OutOfMemoryError as exc:
-            if itr != 0:
-                raise
-            out_of_memory = str(exc)
-        if out_of_memory is not None:
-            # the plan exceeded the card's real memory (mis-calibrated
-            # constants): with the failed attempt's tensors released (the
-            # exception and its frames are gone here), replan at 60% of the
-            # budget — more chunks, or the frame cap — and retry ONCE
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-            log.warning(
-                "level step exhausted device memory (%s...); replanning the E_g layout at 60%% budget",
-                out_of_memory[:200],
-            )
-            fb, reason, eg_chunks = plan(0.6 * budget)
-            log.warning(
-                "  retry layout: %s (%s, %d chunks)",
-                "dense" if fb is None else f"{fb.shape[1]} blocks/frame", reason, eg_chunks,
-            )
-            record_plan(fb, reason, eg_chunks)
-            level = level._replace(bmap=_bmap_on(fb, dev), eg_chunks=eg_chunks)
-            out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
-        bparams, mu = out[0], out[3]
-        record_iteration(itr, t0, out)
+    stats.host_reads = host_reads() - reads0
     if mesh is not None:
         bparams = level.finish(bparams)
     return params_from_block(layout, bparams), finish(mu), stats

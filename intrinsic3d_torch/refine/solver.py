@@ -24,7 +24,10 @@ dispatches on the assembly type, as the JAX function does:
 
 The PCG and LM loops run on the host: each PCG step reads its residual norm
 and each LM try its acceptance, one device→host sync each (at most
-lm_steps × (cg_iters + 1) per call).
+lm_steps × (cg_iters + 2) per call), counted in `timer.HOST_READS`. The
+linearization runs in a `solve.assemble` span and each LM try (its PCG, the
+candidate's cost and the acceptance read) in a `solve.lm_try` span
+(`timer.span`).
 
 With `mesh` (a `parallel.sharding.Mesh`; the JAX function's `axis_name`)
 the block branch runs on one rank's brick of a spatially sharded problem
@@ -45,6 +48,7 @@ import torch
 from intrinsic3d_torch.device import check_on, resolve_device
 from intrinsic3d_torch.refine import blockform
 from intrinsic3d_torch.refine.residuals import Assembly, Params, all_residuals, eg_elem, total_cost
+from intrinsic3d_torch.timer import HOST_READS, span
 
 
 class Masks(NamedTuple):
@@ -173,7 +177,10 @@ def _pcg(matvec, precond, b, iters: int, eta: float = 0.1, tdot=_tdot):
     rz = tdot(r, z)
     tol2 = (eta * eta) * tdot(b, b)
     i = 0
-    while i < iters and bool(tdot(r, r) > tol2):
+    while i < iters:
+        HOST_READS["pcg_residual"] += 1
+        if not bool(tdot(r, r) > tol2):
+            break
         ap = matvec(p)
         alpha = rz / torch.clamp(tdot(p, ap), min=1e-30)
         x = _tmap(lambda xi, pi: xi + alpha * pi, x, p)
@@ -232,15 +239,16 @@ def gn_iteration(
             sdf_plan_nbr=asm.sdf_plan.nbr, alb_plan_nbr=asm.alb_plan.nbr,
         )
         chunked = eg_chunks > 1
-        if chunked:
-            cost0, lin = blockform.linearize_block_chunked(params, asm, eg_chunks, getattr(torch, cg_coeff_dtype))
-        else:
-            cost0, lin = blockform.linearize_block(params, asm)
-        cost0 = psum_scalar(cost0)
-        grad = psum_globals(blockform.jtv_block(lin, asm, (lin.r0_g, lin.r0_r, lin.r0_s, lin.r0_a)))
-        diag = psum_globals(blockform.diag_from_lin(lin, asm))
-        if not chunked and cg_coeff_dtype != "float32":
-            lin = blockform.cast_lin(lin, getattr(torch, cg_coeff_dtype))
+        with span("solve.assemble"):
+            if chunked:
+                cost0, lin = blockform.linearize_block_chunked(params, asm, eg_chunks, getattr(torch, cg_coeff_dtype))
+            else:
+                cost0, lin = blockform.linearize_block(params, asm)
+            cost0 = psum_scalar(cost0)
+            grad = psum_globals(blockform.jtv_block(lin, asm, (lin.r0_g, lin.r0_r, lin.r0_s, lin.r0_a)))
+            diag = psum_globals(blockform.diag_from_lin(lin, asm))
+            if not chunked and cg_coeff_dtype != "float32":
+                lin = blockform.cast_lin(lin, getattr(torch, cg_coeff_dtype))
 
         def normal_apply(v):
             return psum_globals(blockform.jtv_block(lin, asm, blockform.jv_block(lin, asm, v)))
@@ -251,8 +259,9 @@ def gn_iteration(
     else:
         check_on(dev, sdf=params.sdf, poses=params.poses, eg_w=asm.eg_w, er_idx=asm.er_idx, mask=masks.sdf)
         schur_globals = False  # the flat table runs the joint PCG (JAX: block path only)
-        cost0, jv, jt, grad = linearize_flat(params, asm)
-        diag = jtj_diag(params, asm)
+        with span("solve.assemble"):
+            cost0, jv, jt, grad = linearize_flat(params, asm)
+            diag = jtj_diag(params, asm)
 
         def normal_apply(v):
             return jt(jv(v))
@@ -365,8 +374,10 @@ def gn_iteration(
     nu = torch.tensor(2.0, device=dev)
     out_params, cost1 = params, cost0
     while not accepted and tries < lm_steps:
-        cand, cost, pred = try_step(mu)
-        accepted = bool(cost < cost0)
+        with span("solve.lm_try"):
+            cand, cost, pred = try_step(mu)
+            HOST_READS["lm_acceptance"] += 1
+            accepted = bool(cost < cost0)
         # Ceres' Levenberg-Marquardt trust-region update
         # (``levenberg_marquardt_strategy.cc``): on accept the damping is
         # scaled by max(1/3, 1 − (2ρ−1)³) with the gain ratio ρ = actual /

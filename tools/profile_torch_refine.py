@@ -9,7 +9,7 @@ keyframes and fusion of the 30-frame orbit).
 Runs keyframes + fusion on the card, then `Intrinsic3D.refine` from the
 sensor's initial poses three times: a warm-up (the first run in a process
 pays the CUDA libraries' start-up), a timed run (host wall clock of every
-phase, the device synchronized at every phase end, and per (grid, pyramid)
+phase, no synchronize at a phase's end, and per (grid, pyramid)
 level its size, plan, setup and outer-iteration seconds and peak memory),
 and a run under `torch.profiler` (its wall clock, the device busy share and
 the kernels with the most device time). Needs a CUDA device.
