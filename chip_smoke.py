@@ -9,7 +9,10 @@ Builds the port's CUDA kernels from `intrinsic3d_torch/csrc/` with nvcc
 The refinement outer step:
 1. drives it once at the benchmark's scale (bench.py: voxel 0.004 m,
    320x240, 8 keyframes, 142,256 voxels) as a warm-up, recording the inputs
-   the path hands each kernel;
+   the path hands each kernel (the E_g kernel's from its first
+   linearization; K1a's and K1b's are those the eager E_g forward of that
+   linearized chunk hands the sampler, `path_inputs`: the card's block
+   path samples inside the E_g kernel, the flat path through K1a and K1b);
 2. holds every kernel of the path against its plain PyTorch version on those
    inputs and times kernel (in a CUDA graph, from Python, and one call at a
    time with the L2 cache flushed before it, the time its bound is held
@@ -60,16 +63,18 @@ tries, 12 CG steps):
    the poses moved from the true ones (printed, not checked); fails
    unless the schedule is (2,2) (2,1) (2,0) (1,0) (0,0), every level is
    dense, no accepted cost rises, every field is finite, the voxel size
-   ends at 1 mm, the bicubic and depth-probe kernels launched, and the
+   ends at 1 mm, the E_g and depth-probe kernels launched, and the
    refined SDF meets the analytic sphere's bar. It keeps a host copy of
-   the inputs of each level's first K1a (value sampler), K1b (value and
-   derivatives) and K2 (depth probe) call inside `optimize_level` (off the
-   card, so the levels' peak memory holds none of it; the copies' seconds
-   are printed) and the level's launches, holds the three kernels against
-   their plain versions on them after the run, and prints per level M,
-   the active share, the times, the bound and the share of the bound, and
-   per kernel the sum over levels of launches x L2-flushed ms (the `levels`
-   and `main_path_ms` of the K1a, K1b and K2 records). The refinement runs
+   the inputs of each level's first E_g kernel call of each mode
+   (linearization, value) and first K2 (depth probe) call inside
+   `optimize_level` (off the card, so the levels' peak memory holds none of
+   it; the copies' seconds are printed) and the level's launches, holds the
+   kernels against their plain versions on them after the run (the E_g
+   kernel on its frame row with the most nonzero residuals, against the
+   float64 evaluation, `eg_figures`), and prints per level M, the active
+   share, the times, the bound and the share of the bound, and per kernel
+   the sum over levels of launches x L2-flushed ms (the `levels` and
+   `main_path_ms` of the E_g and K2 records). The refinement runs
    with the level pipeline on (the default): each level's layout, plan,
    stencil tables and statics, and each grid-level boundary's upsample and
    sparsify index tables, built on background threads;
@@ -91,8 +96,8 @@ timeout):
    share the card over gloo, the counters zeroed in each rank just before
    and read just after; prints per rank its brick rows and halo rows per
    mesh shift, its peak memory, the seconds per outer iteration at the
-   finest level, its collectives (calls and seconds) and its K1a, K1b and
-   K2 launches, and per level its costs beside step 7's; then, on the same
+   finest level, its collectives (calls and seconds) and its E_g and K2
+   launches, and per level its costs beside step 7's; then, on the same
    ranks, runs 2 outer iterations of `optimize_level(mesh=)` (the outer
    loop `Intrinsic3D(mesh=)` runs each level through) from each level's
    recorded start in step 7. Fails unless the first level's first cost
@@ -100,9 +105,9 @@ timeout):
    the first cost and the cost after the first sharded GN step are within
    rtol 1e-3 of step 7's, no accepted cost rises,
    the refined SDF meets step 7's bar, every per-voxel field a rank held is
-   about half of it, and each rank launched K1a, K1b and K2; rank 0 holds
-   K1a, K1b and K2 against their plain versions on its first inputs (the
-   `multidevice` sub-record). The later levels of the two runs start where
+   about half of it, and each rank launched the E_g kernel and K2; rank 0
+   holds K1a, K1b, K2 and the E_g kernel against their plain versions on
+   its first inputs (the `multidevice` sub-record). The later levels of the two runs start where
    each run's own trajectory ended; how far rounding moves that is printed
    from step 7 run again with 1e-7 colour noise (not gated);
 7c. runs the dry run `python -m intrinsic3d_torch.parallel.dryrun` at 4
@@ -124,7 +129,7 @@ iterations, poses free):
    (chiprun_out/apps.json); fails unless keyframes.txt selects what
    `app_keyframes.run` does, the .tsdf reloads bit for bit to
    `app_fusion.run`'s grid, every level's meshes, poses and intrinsics load
-   finite, K1a, K1b, K2 and K3 launched, the finest mesh's median distance
+   finite, the E_g kernel, K2 and K3 launched, the finest mesh's median distance
    is under half a finest voxel and every keyframe centre stays within
    0.2 m of the orbit.
 
@@ -143,8 +148,9 @@ card's budget):
    twice as many; with float32 coefficients the pair must agree (first cost
    rtol 1e-4, trajectory rtol 2e-2), with the production bfloat16 ones the
    difference is printed;
-11. holds the bicubic and depth-probe kernels against their plain versions
-    on the sampler inputs of the finest bucketed level's first call.
+11. holds the E_g, bicubic and depth-probe kernels against their plain
+    versions on the inputs of the finest bucketed level's first
+    linearization (`path_inputs`) and first depth-probe call.
 
 Then:
 12. holds the distance-transform kernel (several sweeps fused per launch)
@@ -192,6 +198,11 @@ DT_ITERS = 10
 # y in [-0.58, 0.26], z in [0, 2.0]
 DT_FIELD = (411, 211, 501)
 CHAINED_ITERS = 5
+
+
+# the kernels of the card's block solve: the E_g pass (both modes) and the
+# depth probe; the sampler entries K1a and K1b run on the flat path
+BLOCK_PATH_KERNELS = ("eg_rows_lin", "eg_rows_value", "nearest_rows")
 
 
 def log(*a):
@@ -249,9 +260,11 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_first_call(module, name: str, store: dict, key: str = "", when=None, to_host: bool = False):
+def capture_first_call(module, name: str, store: dict, key: str = "", when=None, to_host: bool = False,
+                       pick=None):
     """Wrap `module.name` so the arguments of its first call (for which
-    `when(args)` holds, when given) are kept (cloned; with `to_host`, copied
+    `when(args)` holds, when given) are kept (`pick(args)` of them, when
+    given; tensors, also inside named tuples, cloned; with `to_host`, copied
     to the host, so they take no device memory, and the copy's seconds added
     to `store["capture_s"]`) under `key` (default `name`)."""
     import torch
@@ -259,23 +272,75 @@ def capture_first_call(module, name: str, store: dict, key: str = "", when=None,
     orig = getattr(module, name)
     key = key or name
 
+    def copy(a):
+        if torch.is_tensor(a):
+            return a.detach().cpu() if to_host else a.detach().clone()
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return type(a)(*(copy(t) for t in a))
+        return a
+
     def wrapper(*args):
         if key not in store and (when is None or when(args)):
+            t0 = time.perf_counter()
+            store[key] = tuple(copy(a) for a in (pick(args) if pick else args))
             if to_host:
-                t0 = time.perf_counter()
-                store[key] = tuple(a.detach().cpu() if torch.is_tensor(a) else a for a in args)
                 store["capture_s"] = store.get("capture_s", 0.0) + time.perf_counter() - t0
-            else:
-                store[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
         return orig(*args)
 
     setattr(module, name, wrapper)
     return lambda: setattr(module, name, orig)
 
 
-def value_call(args) -> bool:
-    """A `bicubic_rows` call that launches K1a (no derivative wanted)."""
-    return not (args[2].requires_grad or args[3].requires_grad)
+def capture_linearization(store: dict):
+    """Keep (by reference) the (params, assembly, frame chunks) of the first
+    block linearization (`blockform.linearize_block` or
+    `linearize_block_chunked`) under `store["linearization"]`; returns the
+    function that unwraps both."""
+    from intrinsic3d_torch.refine import blockform
+
+    one, chunked = blockform.linearize_block, blockform.linearize_block_chunked
+
+    def keep_one(params, asm):
+        store.setdefault("linearization", (params, asm, 1))
+        return one(params, asm)
+
+    def keep_chunked(params, asm, num_chunks, *rest):
+        store.setdefault("linearization", (params, asm, num_chunks))
+        return chunked(params, asm, num_chunks, *rest)
+
+    blockform.linearize_block, blockform.linearize_block_chunked = keep_one, keep_chunked
+
+    def restore():
+        blockform.linearize_block, blockform.linearize_block_chunked = one, chunked
+
+    return restore
+
+
+def path_inputs(params, asm, num_chunks: int) -> dict:
+    """From a block linearization's point: the E_g kernel's inputs for its
+    first frame chunk (`eg_rows`: (EgRowsInputs, chunk weights, first frame,
+    coefficient dtype), float32 as the one-shot solve writes them) and the
+    sampler's (`bicubic_rows`), as the eager E_g forward of that chunk hands
+    them to K1a: the CPU path's call, which the card's block path replaced
+    with the E_g kernel and the flat path still makes."""
+    import torch
+
+    from intrinsic3d_torch.refine import blockform, residuals
+
+    sh, sha = asm.sdf_plan.apply(params.sdf), asm.alb_plan.apply(params.albedo)
+    _, n, xs = blockform._chunk_xs(asm, num_chunks)[0]
+    stacks, sh9, vpos, fid = blockform._eg_chunk_inputs(asm, sh, sha, xs["eg_w"], xs["bmap"], xs["fids"],
+                                                        params.poses, params.intr, params.dist)
+    out = {}
+    restore = capture_first_call(residuals, "bicubic_rows", out)
+    try:
+        with torch.no_grad():
+            residuals.eg_core(*(a.movedim(0, -1) for a in stacks), sh9.movedim(0, -1), vpos.movedim(0, -1), fid,
+                              asm.images, asm.pyr_scale, asm.voxel_size, active=(xs["eg_w"] > 0).to(torch.float32))
+    finally:
+        restore()
+    out["eg_rows"] = (blockform._eg_inputs(asm, sh, sha, params), asm.eg_w[:n].clone(), 0, torch.float32)
+    return out
 
 
 def sampler_figures(kernel: str, inputs) -> dict:
@@ -328,8 +393,111 @@ def sampler_line(rec: dict) -> str:
             f"({rec['bound_by']}) pct_of_bound={rec['pct_of_bound']:.1f}")
 
 
+# float operations per active E_g element, counted from csrc/eg_rows.cu: the
+# four points' geometry (~60 each), their samples (K1a's or K1b's,
+# roofline.BICUBIC_OPS), the shading (~25 each) and residual (~15), and in
+# the linearization the reverse pass (~150 a point)
+EG_OPS = {"eg_rows_lin": 4 * (60 + 84 + 25 + 150) + 15, "eg_rows_value": 4 * (60 + 60 + 25) + 15}
+# the kernel against the float64 evaluation of its plain version: within
+# tests/test_torch_kernels.py's bound (twice the plain float32 version's own
+# error on its scene) or twice the plain float32 version's own error on the
+# same row, whichever is larger (the refinement's levels are conditioned
+# otherwise than the test's scene)
+EG_REL = 2e-4
+
+
+def eg_figures(kernel: str, inputs) -> dict:
+    """The E_g kernel's linearization (`eg_rows_lin`, in the coefficient
+    dtype of `inputs`) or value mode (`eg_rows_value`) on `inputs` = (x,
+    chunk weights, first frame, coefficient dtype): its frame row with the
+    most nonzero residuals held against `eg_rows_plain` evaluated in float64
+    (field by field within EG_REL x the field's largest magnitude or twice
+    the plain float32 evaluation's own error, whichever is larger; bfloat16
+    fields besides within one ulp),
+    timed in a CUDA graph, from Python and L2-flushed, beside its byte bound:
+    every element's flag and outputs, the per-slot stencil, SH and position
+    values of the distinct slots the active elements read, the bucket rows,
+    and the image stack once; and its active share."""
+    import torch
+
+    from intrinsic3d_torch.ops import eg_rows
+    from intrinsic3d_torch.ops.roofline import bound, cold_ms
+
+    x, eg_w, lo, dt = inputs
+    x = eg_rows.EgRowsInputs(*(t.cuda() if torch.is_tensor(t) else t for t in x))
+    eg_w = eg_w.cuda()
+    n, kb, s = eg_w.shape
+    k, m = x.poses.shape[0], eg_w.numel()
+    e = (eg_w.reshape(-1) > 0).nonzero()[:, 0]
+    n_act = int(e.numel())
+    blk = (e // s) % kb
+    if x.bmap is not None:
+        blk = x.bmap[lo + e // (kb * s), blk]
+    n_slots = int(torch.unique(blk * s + e % s).numel())
+    if kernel == "eg_rows_lin":
+        r0 = torch.empty((k, kb, s), device="cuda")
+        coeffs = [torch.empty((f, k, kb, s), device="cuda", dtype=dt) for f in eg_rows.FIELDS]
+        fn = lambda: eg_rows.eg_rows_lin(x, eg_w, lo, r0, coeffs)  # noqa: E731
+        fn()
+        res = r0[lo:lo + n]
+        out_bytes = 4 + 29 * torch.tensor([], dtype=dt).element_size()
+    else:
+        fn = lambda: eg_rows.eg_rows_value(x, eg_w, lo)  # noqa: E731
+        res = fn()[0]
+        out_bytes = 4 + 4 / (4 * 256)
+    row = int(torch.argmax((res != 0).sum(dim=(1, 2))))
+    got_r = res[row]
+    got_c = None
+    if kernel == "eg_rows_lin":
+        got_c = torch.cat([c[:, lo + row].reshape(c.shape[0], -1).double() for c in coeffs])
+    x64 = eg_rows.EgRowsInputs(*(t.double() if torch.is_tensor(t) and t.is_floating_point() else t for t in x))
+    want_r, want_c = eg_rows.eg_rows_plain(x64, eg_w[row:row + 1].double(), lo + row, lin=kernel == "eg_rows_lin")
+    p32_r, p32_c = eg_rows.eg_rows_plain(x, eg_w[row:row + 1], lo + row, lin=kernel == "eg_rows_lin")
+    torch.cuda.synchronize()
+    errs, plain_errs = [], []
+    pairs = [("residual", got_r.reshape(-1).double(), want_r, p32_r, False)]
+    if got_c is not None:  # field by field, as tests/test_torch_kernels.py compares
+        at = 0
+        for name, f in zip(("sdf", "albedo", "pose", "intrinsics", "distortion"), eg_rows.FIELDS):
+            pairs.append((name, got_c[at:at + f], want_c[at:at + f], p32_c[at:at + f], dt == torch.bfloat16))
+            at += f
+    for name, got, want, plain, bf16 in pairs:
+        if not torch.isfinite(got).all():
+            fail(f"{kernel}: non-finite output")
+        top = max(float(want.abs().max()), 1e-30)
+        plain_err = float((plain.double() - want).abs().max())
+        slack = max(EG_REL * top, 2 * plain_err)
+        if bf16:
+            slack = slack + torch.pow(2.0, torch.floor(torch.log2(torch.clamp(want.abs(), min=2.0**-126))) - 7)
+        err = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= slack).all()):
+            fail(f"{kernel} {name} differs from the float64 plain version by {err:.3e} (field max {top:.3e}, "
+                 f"the plain float32 version by {plain_err:.3e})")
+        errs.append(err / top)
+        plain_errs.append(plain_err / top)
+    nbytes = (m * (4 + out_bytes) + n_slots * 26 * 4 + (0 if x.bmap is None else x.bmap.numel() * 8)
+              + x.images.numel() * 4)
+    b_ms, b_by = bound(nbytes, n_act * EG_OPS[kernel])
+    rec = dict(elements=m, active=n_act, active_share=n_act / max(m, 1), slots=n_slots, frames=n,
+               coeff_dtype=str(dt).replace("torch.", "") if kernel == "eg_rows_lin" else None,
+               max_rel_err=max(errs), plain32_rel_err=max(plain_errs), needed_bytes=nbytes, ms=graph_ms(fn),
+               call_ms=cuda_ms(fn), cold_ms=cold_ms(fn), bound_ms=b_ms, bound_by=b_by)
+    rec["pct_of_bound"] = 100 * b_ms / rec["cold_ms"]
+    return rec
+
+
+def eg_line(rec: dict) -> str:
+    return (f"M={rec['elements']} active={rec['active']} ({100 * rec['active_share']:.2f}%) slots={rec['slots']} "
+            f"coeffs={rec['coeff_dtype']} max_rel_err={rec['max_rel_err']:.3e} (plain float32 "
+            f"{rec['plain32_rel_err']:.3e}) ms={rec['ms']:.4f} "
+            f"call_ms={rec['call_ms']:.4f} cold_ms={rec['cold_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+            f"({rec['bound_by']}, {rec['needed_bytes'] / 1e6:.1f} MB) pct_of_bound={rec['pct_of_bound']:.1f}")
+
+
 def check_kernels(captured: dict) -> list:
-    """Phase 1: each kernel against its plain version on the path's inputs."""
+    """Phase 1: each kernel against its plain version on the path's inputs
+    (K1a and K1b on those the eager E_g forward of the path's first
+    linearized chunk hands the sampler, `path_inputs`)."""
     import torch
 
     from intrinsic3d_torch.ops import bicubic
@@ -365,6 +533,15 @@ def check_kernels(captured: dict) -> list:
     log(f"  nearest_rows: {sampler_line(rec)} library_ms={rec['library_ms']:.4f}")
     records.append(dict(name="nearest_rows", route="cuda", source="intrinsic3d_torch/csrc/nearest_rows.cu",
                         replaces="intrinsic3d_tpu/ops/pallas/bicubic.py:690", **rec))
+
+    if "eg_rows" in captured:  # a block path's (the flat path has no E_g kernel)
+        rec = eg_figures("eg_rows_lin", captured["eg_rows"])
+        log(f"  eg_rows_lin: {eg_line(rec)}")
+        rec["value"] = eg_figures("eg_rows_value", captured["eg_rows"])
+        log(f"  eg_rows_value: {eg_line(rec['value'])}")
+        records.append(dict(name="eg_rows_lin", route="cuda", source="intrinsic3d_torch/csrc/eg_rows.cu",
+                            replaces="none (XLA fuses the JAX package's eg_core forward and its vjp)", **rec,
+                            library_ms=None))
     return records
 
 
@@ -637,16 +814,17 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     level's `optimize_level` arguments are kept under `inputs` (the grid
     copied, the rest references; `prep=None` in place of the level's
     consumed `LevelPrep`, so a replay builds its level serially). With
-    `capture_samplers`, a host copy of the inputs of each level's first K1a,
-    K1b and K2 call inside `optimize_level` is kept under `sampler_calls`,
+    `capture_samplers`, a host copy of the inputs of each level's first E_g
+    kernel call of each mode and first K2 call inside `optimize_level` is
+    kept under `sampler_calls`,
     one dict a level, with the level's launches of every kernel (`launches`)
     and the copy's seconds (`capture_s`, inside `total_s`; the levels' peak
     memory holds none of it)."""
     import torch
 
     from intrinsic3d_torch import observations
-    from intrinsic3d_torch.ops import build
-    from intrinsic3d_torch.refine import intrinsic3d, residuals
+    from intrinsic3d_torch.ops import build, eg_rows
+    from intrinsic3d_torch.refine import intrinsic3d
     from intrinsic3d_torch.synthetic import PIPELINE_CG_ITERS, PIPELINE_REFINEMENT
 
     poses, cam = initial
@@ -669,15 +847,15 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
             return real(grid, *args, **kw)
         calls, before = {}, dict(build.LAUNCHES)
         sampler_calls.append(calls)
-        restore = [capture_first_call(residuals, "bicubic_rows", calls, key="bicubic_rows_fwd", when=value_call,
-                                      to_host=True),
-                   capture_first_call(residuals, "bicubic_rows", calls, key="bicubic_rows_fwdgrad",
-                                      when=lambda args: not value_call(args), to_host=True),
+        restore = [capture_first_call(eg_rows, "eg_rows_lin", calls, to_host=True,
+                                      pick=lambda args: (*args[:3], args[4][0].dtype)),
+                   capture_first_call(eg_rows, "eg_rows_value", calls, to_host=True,
+                                      pick=lambda args: (*args[:3], None)),
                    capture_first_call(observations, "nearest_rows", calls, to_host=True)]
         try:
             return real(grid, *args, **kw)
         finally:
-            for r in reversed(restore):  # the second wrapper of bicubic_rows wraps the first
+            for r in restore:
                 r()
             calls["launches"] = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
 
@@ -728,23 +906,25 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
 
 
 def check_levels(run: dict) -> dict:
-    """K1a, K1b and K2 on the first inputs each level of the pipeline
-    refinement handed them (`sampler_figures` on the card, each level's line
-    printed): per kernel the list of level records, with the level's
-    launches, and the main-path total: the sum over levels of launches at
-    the level x L2-flushed ms."""
+    """The E_g kernel (both modes) and K2 on the first inputs each level of
+    the pipeline refinement handed them (`eg_figures`, `sampler_figures` on
+    the card, each level's line printed): per kernel the list of level
+    records, with the level's launches, and the main-path total: the sum
+    over levels of launches at the level x L2-flushed ms."""
     import torch
 
     out = {}
-    for kernel in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
+    for kernel in BLOCK_PATH_KERNELS:
         recs, total, in_levels = [], 0.0, 0
         for lv, calls in zip(run["levels"], run["sampler_calls"]):
             if kernel not in calls:
                 fail(f"level {lv['level']} made no {kernel} call inside optimize_level")
             inputs = tuple(a.cuda() if torch.is_tensor(a) else a for a in calls.pop(kernel))
-            rec = dict(level=lv["level"], launches=calls["launches"][kernel], **sampler_figures(kernel, inputs))
+            figures = eg_figures if kernel.startswith("eg_rows") else sampler_figures
+            rec = dict(level=lv["level"], launches=calls["launches"][kernel], **figures(kernel, inputs))
             del inputs
-            log(f"  level {lv['level']} {kernel}: launches={rec['launches']} {sampler_line(rec)}")
+            line = eg_line if kernel.startswith("eg_rows") else sampler_line
+            log(f"  level {lv['level']} {kernel}: launches={rec['launches']} {line(rec)}")
             total += rec["launches"] * rec["cold_ms"]
             in_levels += rec["launches"]
             recs.append(rec)
@@ -770,25 +950,27 @@ def multidevice_rank(mesh, fused, keyframes, starts) -> dict:
     """One rank of step 7b: `parallel.dryrun.refinement_task` (the
     two-rank refinement of `fused`, counters zeroed just before it and read
     just after, then `optimize_level(mesh=)` from each recorded start of
-    the single-device run); rank 0 records the first inputs of K1 and K2 in
-    the refinement and holds the kernels against their plain versions on
-    them afterwards."""
+    the single-device run); rank 0 records the first linearization's and
+    K2's inputs in the refinement (`path_inputs`, which every rank calls:
+    the E_g kernel's and K1's) and holds the kernels against their plain
+    versions on them afterwards."""
     import torch
 
     from intrinsic3d_torch import observations
     from intrinsic3d_torch.parallel import dryrun
-    from intrinsic3d_torch.refine import residuals
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    captured, restore = {}, []
+    captured = {}
+    restore = [capture_linearization(captured)]
     if mesh.rank == 0:
-        restore = [capture_first_call(residuals, "bicubic_rows", captured),
-                   capture_first_call(observations, "nearest_rows", captured)]
+        restore.append(capture_first_call(observations, "nearest_rows", captured))
     try:
         out = dryrun.refinement_task(mesh, fused, keyframes, starts)
     finally:
         for r in restore:
             r()
+    # on every rank: the halo'd stencil shifts of `path_inputs` are collectives
+    captured.update(path_inputs(*captured.pop("linearization")))
     if mesh.rank == 0:
         out["kernels"] = check_kernels(captured)
     return out
@@ -847,9 +1029,9 @@ def multidevice_phase(fusion: dict, single: dict) -> dict:
             f"{max(lv['peak_bytes'] for lv in r['levels']) / 1e9:.3f} GB; outer iteration at g0 median "
             f"{statistics.median(g0r['iter_s']):.4f}s (min {min(g0r['iter_s']):.4f}, max {max(g0r['iter_s']):.4f}); "
             f"collectives {r['collectives']['total_calls']} calls in {r['collectives']['total_s']:.3f}s "
-            f"{r['collectives']['calls']}; launches K1a {r['launches']['bicubic_rows_fwd']} K1b "
-            f"{r['launches']['bicubic_rows_fwdgrad']} K2 {r['launches']['nearest_rows']}")
-        for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
+            f"{r['collectives']['calls']}; launches E_g {r['launches']['eg_rows_lin']} + "
+            f"{r['launches']['eg_rows_value']} K2 {r['launches']['nearest_rows']}")
+        for name in BLOCK_PATH_KERNELS:
             if r["launches"][name] == 0:
                 fail(f"rank {r['rank']} never launched {name} in the multi-device refinement")
         for records in r["placements"]:
@@ -937,7 +1119,7 @@ def pose_drift(poses, keyframes, initial) -> str:
 
 def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
     """The bars every pipeline refinement meets: the schedule, no accepted
-    cost rising, finite fields and poses, 1 mm at the end, the bicubic and
+    cost rising, finite fields and poses, 1 mm at the end, the E_g and
     depth-probe kernels launched, and the refined SDF against the analytic
     sphere."""
     import numpy as np
@@ -957,7 +1139,7 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
         fail("non-finite refined poses")
     if abs(refined.voxel_size - 0.001) > 1e-9:
         fail(f"final voxel size {refined.voxel_size}, expected 0.001 m")
-    for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows"):
+    for name in BLOCK_PATH_KERNELS:
         if run["launches"][name] == 0:
             fail(f"kernel {name} was never launched in the pipeline refinement")
     from intrinsic3d_torch.synthetic import refined_sdf_error
@@ -974,7 +1156,7 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
 def refinement_phase(fusion: dict) -> dict:
     """Stage 3 of bench_pipeline.py on the card from the 30-frame fused grid
     (`run_refinement`): fails unless `check_refinement`'s bars hold and every
-    level plans dense, and holds K1a, K1b and K2 against their plain
+    level plans dense, and holds the E_g kernel and K2 against their plain
     versions on each level's first inputs (`check_levels`). Returns the
     launches, the per-level records, the levels' recorded `optimize_level`
     inputs (`inputs`) and the per-level sampler records (`sampler_levels`)."""
@@ -1144,7 +1326,6 @@ def compare_levels(tag: str, inputs, runs: dict, coeff_dtype: str, gate: bool, c
 
     from intrinsic3d_torch import observations
     from intrinsic3d_torch.refine import optimizer as opt
-    from intrinsic3d_torch.refine import residuals
 
     args, kw = inputs
     kw = dict(kw, cg_coeff_dtype=coeff_dtype)
@@ -1153,8 +1334,7 @@ def compare_levels(tag: str, inputs, runs: dict, coeff_dtype: str, gate: bool, c
         cfg = dataclasses.replace(args[3], iterations=2, **changes)
         restore = []
         if capture is not None and i == 0:
-            restore = [capture_first_call(residuals, "bicubic_rows", capture),
-                       capture_first_call(observations, "nearest_rows", capture)]
+            restore = [capture_linearization(capture), capture_first_call(observations, "nearest_rows", capture)]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1163,8 +1343,11 @@ def compare_levels(tag: str, inputs, runs: dict, coeff_dtype: str, gate: bool, c
         finally:
             for r in restore:
                 r()
+        if "linearization" in (capture or {}):
+            capture.update(path_inputs(*capture.pop("linearization")))
         out[name] = st
-        held = sum(a.numel() * a.element_size() for v in (capture or {}).values() for a in v if torch.is_tensor(a))
+        held = sum(a.numel() * a.element_size() for v in (capture or {}).values() if isinstance(v, tuple)
+               for a in v if torch.is_tensor(a))
         log(f"  {tag}, {coeff_dtype} coefficients, {name}: plan '{st.reason}' eg_chunks={st.eg_chunks} "
             f"bucket_blocks={st.bucket_blocks} elements={st.elements}; costs {st.costs_before} -> {st.costs_after}; "
             f"tries {st.tries}; peak {st.peak_bytes / 1e9:.3f} GB = {st.peak_bytes / st.elements:.1f} B/element"
@@ -1239,8 +1422,8 @@ def many_keyframe_phase() -> dict:
     if not finest["bucket_blocks"]:
         fail(f"the finest level was planned '{finest['reason']}', not frame-bucketed")
     n = run["launches"]
-    log(f"  refinement {run['total_s']:.3f}s; launches bicubic_rows_fwd={n['bicubic_rows_fwd']} "
-        f"bicubic_rows_fwdgrad={n['bicubic_rows_fwdgrad']} nearest_rows={n['nearest_rows']}")
+    log(f"  refinement {run['total_s']:.3f}s; launches eg_rows_lin={n['eg_rows_lin']} "
+        f"eg_rows_value={n['eg_rows_value']} nearest_rows={n['nearest_rows']}")
 
     # --- the streamed check, each pair from one recorded start: gated with
     # float32 coefficients, where the streamed path computes what one-shot
@@ -1386,7 +1569,7 @@ def apps_phase() -> dict:
         f"{wall['intrinsic3d'] - exports_s:.4f}s")
     log("  app_intrinsic3d phases (s): " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
     log(f"  launches {launches}")
-    for name in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows", "correct_sdf_dense"):
+    for name in (*BLOCK_PATH_KERNELS, "correct_sdf_dense"):
         if launches[name] == 0:
             fail(f"kernel {name} was never launched by the apps")
 
@@ -1737,7 +1920,6 @@ def main() -> int:
 
     from intrinsic3d_torch import observations
     from intrinsic3d_torch.ops import build
-    from intrinsic3d_torch.refine import residuals
     from intrinsic3d_torch.refine.solver import gn_iteration
     from intrinsic3d_torch.synthetic import BENCH_MU0, BENCH_PROBLEM, BENCH_SOLVER, build_sphere_problem
 
@@ -1765,10 +1947,7 @@ def main() -> int:
         f"frames={prob.images.shape[0]} in {time.perf_counter() - t0:.1f}s")
 
     captured = {}
-    restore = [
-        capture_first_call(residuals, "bicubic_rows", captured),
-        capture_first_call(observations, "nearest_rows", captured),
-    ]
+    restore = [capture_linearization(captured), capture_first_call(observations, "nearest_rows", captured)]
     t0 = time.perf_counter()
     basm, bmasks = level.assemble(level.params, prob.depths, prob.images)
     n_active = int((basm.eg_w > 0).sum())
@@ -1777,10 +1956,12 @@ def main() -> int:
     torch.cuda.synchronize()
     for r in restore:
         r()
+    if "linearization" in captured:
+        captured.update(path_inputs(*captured.pop("linearization")))
     del basm, bmasks
     log(f"phase warmup: active_eg={n_active} cost {float(c0):.6f} -> {float(c1):.6f} tries={tries} "
         f"in {time.perf_counter() - t0:.2f}s")
-    if set(captured) != {"bicubic_rows", "nearest_rows"}:
+    if set(captured) != {"bicubic_rows", "nearest_rows", "eg_rows"}:
         fail(f"the warm-up did not reach every kernel: {sorted(captured)}")
 
     # --- phase 1: kernels against their plain versions on the path's inputs
@@ -1816,8 +1997,9 @@ def main() -> int:
     for r in records:
         r["launches"] = launches[r["name"]]
         r["status"] = "ok"
-        if r["launches"] == 0:
-            fail(f"kernel {r['name']} was never launched on the refinement path")
+    for name in BLOCK_PATH_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was never launched on the refinement path")
 
     # --- phase 3: the result on a small problem against the plain CPU path
     small_problem_agrees()
@@ -1927,8 +2109,8 @@ def main() -> int:
         r["launches_flat"] = flat["launches"][r["name"]]
         if r["name"] in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows") and r["launches_flat"] == 0:
             fail(f"kernel {r['name']} was never launched on the flat path")
-    if len(records) != 6:
-        fail(f"{len(records)} kernel records, expected 6")
+    if len(records) != 7:
+        fail(f"{len(records)} kernel records, expected 7")
     kernels = {"kernels": records}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -51,7 +51,8 @@
 // catrom_dw, the same fmaf order (r and rd over a row's taps, then val, gx
 // and gy over the rows), the same fminf/fmaxf clip (a NaN coordinate
 // samples the clip corner) and the same masks on the unclipped
-// coordinates.
+// coordinates. The weights, the taps and the sums live in catrom.cuh,
+// which the E_g element pass of eg_rows.cu samples through too.
 //
 // Candidates that lost (PERF.md §6). For the value: a persistent
 // bulk-copy kernel, 8 elements a thread, 2 groups of 4 a thread, 16-byte
@@ -68,26 +69,13 @@
 // element; the per-element arrays are read and written coalesced; inactive
 // elements read only their `active` flag and write zeros.
 
+#include "catrom.cuh"
 #include "rows_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void catrom_w(float t, float w[4]) {
-  const float t2 = t * t;
-  const float t3 = t2 * t;
-  w[0] = -0.5f * t + t2 - 0.5f * t3;
-  w[1] = 1.0f - 2.5f * t2 + 1.5f * t3;
-  w[2] = 0.5f * t + 2.0f * t2 - 1.5f * t3;
-  w[3] = -0.5f * t2 + 0.5f * t3;
-}
-
-__device__ __forceinline__ void catrom_dw(float t, float w[4]) {
-  const float t2 = t * t;
-  w[0] = -0.5f + 2.0f * t - 1.5f * t2;
-  w[1] = -5.0f * t + 4.5f * t2;
-  w[2] = 0.5f + 4.0f * t - 4.5f * t2;
-  w[3] = -t + 1.5f * t2;
-}
+using i3d_catrom::catrom_dw;
+using i3d_catrom::catrom_w;
 
 // The value through the element stream, element for element the arithmetic
 // of the first design's value-only mode: catrom_w, then the fmaf order
@@ -101,36 +89,17 @@ struct BicubicValueOp {
   template <int V>
   __device__ static __forceinline__ void eval(const Params& p, const float (&act)[V], const uint32_t (&fid)[V],
                                               const uint32_t (&xs)[V], const uint32_t (&ys)[V], float (&o)[1][V]) {
-    // the clip bounds as float32, the same rounding as the Python side
-    const float xmax = (float)((double)p.w - 2.001);
-    const float ymax = (float)((double)p.h - 2.001);
+    const float xmax = i3d_catrom::clip_max(p.w);
+    const float ymax = i3d_catrom::clip_max(p.h);
     // one element after another, each active element's 16 taps issued
     // together: 40 registers, where issuing all V elements' taps at once
     // took 48-64 and fewer blocks an SM (PERF.md §6)
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       float val = 0.0f;
-      if (act[v] > 0.0f) {
-        const float xc = fminf(fmaxf(__uint_as_float(xs[v]), 1.0f), xmax);
-        const float yc = fminf(fmaxf(__uint_as_float(ys[v]), 1.0f), ymax);
-        const float x0f = floorf(xc);
-        const float y0f = floorf(yc);
-        float wx[4], wy[4];
-        catrom_w(xc - x0f, wx);
-        catrom_w(yc - y0f, wy);
-        const float* tap =
-            p.images + ((int64_t)(int32_t)fid[v] * p.h + ((int)y0f - 1)) * (int64_t)p.w + ((int)x0f - 1);
-        float t[16];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) t[k] = __ldg(tap + (int64_t)(k / 4) * p.w + (k % 4));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float r = 0.0f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) r = fmaf(wx[i], t[4 * j + i], r);
-          val = fmaf(wy[j], r, val);
-        }
-      }
+      if (act[v] > 0.0f)
+        val = i3d_catrom::value(p.images, p.h, p.w, xmax, ymax, fid[v], __uint_as_float(xs[v]),
+                                __uint_as_float(ys[v]));
       o[0][v] = val;
     }
   }
@@ -149,45 +118,16 @@ struct BicubicValueGradOp {
   template <int V>
   __device__ static __forceinline__ void eval(const Params& p, const float (&act)[V], const uint32_t (&fid)[V],
                                               const uint32_t (&xs)[V], const uint32_t (&ys)[V], float (&o)[3][V]) {
-    // the clip bounds as float32, the same rounding as the Python side
-    const float xmax = (float)((double)p.w - 2.001);
-    const float ymax = (float)((double)p.h - 2.001);
+    const float xmax = i3d_catrom::clip_max(p.w);
+    const float ymax = i3d_catrom::clip_max(p.h);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const float xe = __uint_as_float(xs[v]);
       const float ye = __uint_as_float(ys[v]);
       float t[16], wx[4], wy[4], dwx[4], dwy[4];
-      if (act[v] > 0.0f) {
-        const float xc = fminf(fmaxf(xe, 1.0f), xmax);
-        const float yc = fminf(fmaxf(ye, 1.0f), ymax);
-        const float x0f = floorf(xc);
-        const float y0f = floorf(yc);
-        catrom_w(xc - x0f, wx);
-        catrom_w(yc - y0f, wy);
-        catrom_dw(xc - x0f, dwx);
-        catrom_dw(yc - y0f, dwy);
-        const float* tap =
-            p.images + ((int64_t)(int32_t)fid[v] * p.h + ((int)y0f - 1)) * (int64_t)p.w + ((int)x0f - 1);
-#pragma unroll
-        for (int k = 0; k < 16; ++k) t[k] = __ldg(tap + (int64_t)(k / 4) * p.w + (k % 4));
-      }
+      if (act[v] > 0.0f) i3d_catrom::taps(p.images, p.h, p.w, xmax, ymax, fid[v], xe, ye, t, wx, wy, dwx, dwy);
       float val = 0.0f, gx = 0.0f, gy = 0.0f;
-      if (act[v] > 0.0f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float r = 0.0f, rd = 0.0f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            r = fmaf(wx[i], t[4 * j + i], r);
-            rd = fmaf(dwx[i], t[4 * j + i], rd);
-          }
-          val = fmaf(wy[j], r, val);
-          gx = fmaf(wy[j], rd, gx);
-          gy = fmaf(dwy[j], r, gy);
-        }
-        if (!(xe >= 1.0f && xe < xmax)) gx = 0.0f;
-        if (!(ye >= 1.0f && ye < ymax)) gy = 0.0f;
-      }
+      if (act[v] > 0.0f) i3d_catrom::sums(t, wx, wy, dwx, dwy, xe, ye, xmax, ymax, val, gx, gy);
       o[0][v] = val;
       o[1][v] = gx;
       o[2][v] = gy;

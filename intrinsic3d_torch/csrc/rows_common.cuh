@@ -28,11 +28,20 @@
 // t[1:], is only 4-byte aligned) it takes scalar ones, still V independent
 // loads a thread. The ragged tail (m mod V elements) is one thread's,
 // element by element. One launch per call in every case.
+//
+// An Op with `OWN_IO = true` (the E_g element pass of eg_rows.cu) reads its
+// per-element data and writes its outputs itself: the stream still loads
+// the V flags as one vector and skips nothing, but hands the Op the group's
+// first element, its flags and whether any is active (`Op::group<V, VEC>`),
+// the tail's elements one at a time (`Op::one`), and a per-thread float
+// that every thread of the block passes to `Op::block_end` at the end.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace i3d_rows {
 
@@ -111,13 +120,31 @@ __device__ __forceinline__ void one_element(const typename Op::Params& p, const 
   for (int k = 0; k < Op::NOUT; ++k) a.out[k][e] = o[k][0];
 }
 
+template <class Op, class = void>
+struct own_io : std::false_type {};
+template <class Op>
+struct own_io<Op, std::void_t<decltype(Op::OWN_IO)>> : std::bool_constant<Op::OWN_IO> {};
+
 // Threads [0, ngroups) take the groups of the body [0, V*ngroups); thread
 // ngroups takes the tail, one element at a time.
 template <class Op, int V, bool VEC>
 __global__ void __launch_bounds__(256) rows_vec_kernel(const typename Op::Params p, const Arrays<Op::NOUT> a,
                                                        int64_t ngroups) {
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < ngroups) {
+  if constexpr (own_io<Op>::value) {
+    float acc = 0.0f;
+    if (g < ngroups) {
+      float act[V];
+      load_f<V, VEC>(a.active + g * V, act);
+      bool any = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v) any |= act[v] > 0.0f;
+      Op::template group<V, VEC>(p, a, g * V, act, any, acc);
+    } else if (g == ngroups) {
+      for (int64_t e = ngroups * V; e < a.m; ++e) Op::one(p, a, e, __ldg(a.active + e), acc);
+    }
+    Op::block_end(p, acc);
+  } else if (g < ngroups) {
     const int64_t e0 = g * V;
     float act[V];
     load_f<V, VEC>(a.active + e0, act);

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "intrinsic3d_torch"
-SOURCES = ("bicubic_rows", "nearest_rows", "correct_sdf_dense")
+SOURCES = ("bicubic_rows", "nearest_rows", "correct_sdf_dense", "eg_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "correct_sdf_dense": 0,
     "bicubic_sample_fwd": 0,
     "bicubic_sample_bwd": 0,
+    "eg_rows_lin": 0,
+    "eg_rows_value": 0,
 }
 
 

@@ -25,15 +25,20 @@ over the coefficient fields plus shift-plan gathers.
 `linearize_block_chunked` and `block_total_cost` stream that reverse pass
 and the LM acceptance forward over frame chunks, so only the compact
 coefficient fields persist while the transients are bounded at one chunk's
-frames. `to_block_problem` re-lays a flat-table problem
-(`refine.assembly.build_assembly`) into this form, the equivalence bridge of
+frames. On the card each of those E_g passes is one launch of the E_g
+kernel a chunk (`ops.eg_rows`: the residual and its 29 coefficients written
+into the fields, or the residual and its r² partial sums), with no autograd
+and no element-sized transient; on the CPU they run `eg_core` eagerly and
+its autograd reverse pass, the plain version the kernel is held to.
+`EG_PASSES` counts the passes of each kind. `to_block_problem` re-lays a
+flat-table problem (`refine.assembly.build_assembly`) into this form, the equivalence bridge of
 the tests and of `chip_smoke.py`.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from intrinsic3d_torch.device import check_on, resolve_device
 from intrinsic3d_torch.grid.blocks import BlockLayout, ShiftPlan, build_shift_plan, pad_flat
 from intrinsic3d_torch.grid.voxel_grid import EG_ALBEDO_OFFSETS, EG_SDF_OFFSETS
 from intrinsic3d_torch.mathutil import pose_vec_to_matrix
+from intrinsic3d_torch.ops import eg_rows
 from intrinsic3d_torch.refine.residuals import Assembly, Params, eg_core
 
 log = logging.getLogger("intrinsic3d")
@@ -54,6 +60,11 @@ ALB_OFFSETS = tuple(map(tuple, EG_ALBEDO_OFFSETS.tolist())) + ((-1, 0, 0), (0, -
 
 _PLUS = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
 _RING6 = _PLUS + ((-1, 0, 0), (0, -1, 0), (0, 0, -1))
+
+# E_g passes of the linearization and the LM acceptance cost, one a frame
+# chunk: "fused" through the E_g kernel, "eager" through `eg_core` (and, to
+# linearize, autograd). `OptimizeStats` keeps a level's difference.
+EG_PASSES: Dict[str, int] = {"fused": 0, "eager": 0}
 
 
 class BlockAssembly(NamedTuple):
@@ -272,6 +283,7 @@ def _eg_reverse(asm: BlockAssembly, sh, sha, eg_w, bmap, fids, params: Params):
     land in BlockLin's layout. `autograd.grad` frees the graph itself (no
     `retain_graph`). Returns (r0 `[kc, kb, B³]`, (a_sdf, a_alb, a_pose,
     a_intr, a_dist))."""
+    EG_PASSES["eager"] += 1
     stacks, sh9, vpos, fid = _eg_chunk_inputs(asm, sh, sha, eg_w, bmap, fids, params.poses, params.intr, params.dist)
     inputs = tuple(x.detach().contiguous().requires_grad_(True) for x in stacks)
     sqrt_wlam = torch.sqrt(eg_w * asm.lam[0])
@@ -303,13 +315,63 @@ def _finish_lin(sh, sha, asm: BlockAssembly, r0_g, coeffs) -> Tuple[torch.Tensor
     return cost0, BlockLin(*coeffs, r0_g, r0_r, r0_s, r0_a, sq_er, sq_es, sq_ea)
 
 
+def _frame_chunks(k: int, num_chunks: int) -> list:
+    """`(first frame, frames)` of the ⌈K/C⌉-frame chunks of a K-frame
+    element grid (`_chunk_xs` pads the last one; the E_g kernel takes any
+    number of frame rows)."""
+    kc = -(-k // max(num_chunks, 1))
+    return [(lo, min(kc, k - lo)) for lo in range(0, k, kc)]
+
+
+def _eg_inputs(asm: BlockAssembly, sh, sha, params: Params) -> eg_rows.EgRowsInputs:
+    return eg_rows.EgRowsInputs(
+        sdf=sh, alb=sha, sh=asm.eg_sh, vpos=asm.eg_vpos, bmap=asm.bmap, poses=params.poses, intr=params.intr,
+        dist=params.dist, lam=asm.lam, pyr_scale=asm.pyr_scale, voxel_size=asm.voxel_size, images=asm.images,
+    )
+
+
+def _eg_fused_lin(asm: BlockAssembly, sh, sha, params: Params, num_chunks: int, coeff_dtype):
+    """The E_g residual `[K, kb, B³]` and its coefficient fields in
+    `coeff_dtype`, one E_g kernel launch a frame chunk writing straight into
+    them (the card's path of `linearize_block*`)."""
+    k, kb, s = asm.eg_w.shape
+    r0_g = asm.eg_w.new_empty(k, kb, s)
+    coeffs = tuple(asm.eg_w.new_empty((c, k, kb, s), dtype=coeff_dtype) for c in eg_rows.FIELDS)
+    x = _eg_inputs(asm, sh, sha, params)
+    for lo, n in _frame_chunks(k, num_chunks):
+        eg_rows.eg_rows_lin(x, asm.eg_w[lo : lo + n], lo, r0_g, coeffs)
+        EG_PASSES["fused"] += 1
+    return r0_g, coeffs
+
+
+def _eg_fused_cost(asm: BlockAssembly, sh, sha, params: Params, num_chunks: int) -> torch.Tensor:
+    """Σ r² of the weighted E_g residuals: one E_g kernel launch a frame
+    chunk, each writing its per-block partial sums into one buffer, then one
+    sum (the card's path of `block_total_cost`)."""
+    k, kb, s = asm.eg_w.shape
+    chunks = _frame_chunks(k, num_chunks)
+    sizes = [eg_rows.partial_blocks(n * kb * s) for _, n in chunks]
+    partial = asm.eg_w.new_empty(sum(sizes))
+    x = _eg_inputs(asm, sh, sha, params)
+    at = 0
+    for (lo, n), size in zip(chunks, sizes):
+        eg_rows.eg_rows_value(x, asm.eg_w[lo : lo + n], lo, partial[at : at + size])
+        EG_PASSES["fused"] += 1
+        at += size
+    return torch.sum(partial)
+
+
 def linearize_block(params: Params, asm: BlockAssembly) -> Tuple[torch.Tensor, BlockLin]:
     """One reverse pass over all E_g elements + closed forms for the linear
-    terms. Returns (cost0, lin)."""
+    terms. Returns (cost0, lin). On the card the E_g pass is one E_g kernel
+    launch (float32 coefficients)."""
     sh = asm.sdf_plan.apply(params.sdf)  # [13, nb, B³]
     sha = asm.alb_plan.apply(params.albedo)  # [7, nb, B³]
-    fids = torch.arange(asm.eg_w.shape[0], dtype=torch.int32, device=asm.eg_w.device)
-    r0_g, coeffs = _eg_reverse(asm, sh, sha, asm.eg_w, asm.bmap, fids, params)
+    if asm.eg_w.is_cuda:
+        r0_g, coeffs = _eg_fused_lin(asm, sh, sha, params, 1, torch.float32)
+    else:
+        fids = torch.arange(asm.eg_w.shape[0], dtype=torch.int32, device=asm.eg_w.device)
+        r0_g, coeffs = _eg_reverse(asm, sh, sha, asm.eg_w, asm.bmap, fids, params)
     return _finish_lin(sh, sha, asm, r0_g, coeffs)
 
 
@@ -323,8 +385,7 @@ def _chunk_xs(asm: BlockAssembly, num_chunks: int) -> list:
     kc = -(-k // num_chunks)
     nb = asm.er_w.shape[0]
     out = []
-    for lo in range(0, k, kc):
-        n = min(kc, k - lo)
+    for lo, n in _frame_chunks(k, num_chunks):
         x = dict(
             eg_w=asm.eg_w[lo : lo + n],
             fids=torch.clamp(torch.arange(lo, lo + kc, dtype=torch.int32, device=asm.eg_w.device), max=k - 1),
@@ -348,7 +409,15 @@ def linearize_block_chunked(
     (``colorization.cpp:357-370``). Only the 29 coefficient fields, written
     in `coeff_dtype` straight into preallocated `[F, K, kb, B³]` outputs,
     and the float32 residual persist. With float32 the result is
-    `linearize_block`'s: chunking re-batches the same per-element math."""
+    `linearize_block`'s: chunking re-batches the same per-element math. On
+    the card each chunk is one E_g kernel launch writing the fields in
+    `coeff_dtype` (one chunk too: the same numbers as `linearize_block`'s
+    cast)."""
+    if asm.eg_w.is_cuda:
+        sh = asm.sdf_plan.apply(params.sdf)
+        sha = asm.alb_plan.apply(params.albedo)
+        r0_g, coeffs = _eg_fused_lin(asm, sh, sha, params, num_chunks, coeff_dtype)
+        return _finish_lin(sh, sha, asm, r0_g, coeffs)
     if num_chunks <= 1:
         cost0, lin = linearize_block(params, asm)
         return cost0, lin if coeff_dtype == torch.float32 else cast_lin(lin, coeff_dtype)
@@ -370,14 +439,22 @@ def block_total_cost(params: Params, asm: BlockAssembly, num_chunks: int = 1, ma
     """Total cost `0.5·‖r‖²` with the E_g forward streamed over frame chunks
     (the LM acceptance of the streamed solve: the whole residual stack would
     hold element-grid-sized temporaries). One chunk is
-    `block_all_residuals`' sum."""
+    `block_all_residuals`' sum. On the card (`masked`) the E_g part is one
+    E_g kernel launch a chunk, each writing its r² partial sums into one
+    buffer, and one sum."""
+    if asm.eg_w.is_cuda and masked:
+        sh = asm.sdf_plan.apply(params.sdf)
+        sha = asm.alb_plan.apply(params.albedo)
+        return _with_linear_terms(sh, sha, asm, _eg_fused_cost(asm, sh, sha, params, num_chunks))
     if num_chunks <= 1:
+        EG_PASSES["eager"] += 1
         r = block_all_residuals(params, asm, masked=masked)
         return 0.5 * torch.sum(r * r)
     sh = asm.sdf_plan.apply(params.sdf)
     sha = asm.alb_plan.apply(params.albedo)
     cost_g = sh.new_zeros(())
     for _, _, x in _chunk_xs(asm, num_chunks):
+        EG_PASSES["eager"] += 1
         eg_w = x["eg_w"]
         stacks, sh9, vpos, fid = _eg_chunk_inputs(
             asm, sh, sha, eg_w, x["bmap"], x["fids"], params.poses, params.intr, params.dist
@@ -394,6 +471,12 @@ def block_total_cost(params: Params, asm: BlockAssembly, num_chunks: int = 1, ma
         )
         r = torch.sqrt(eg_w * asm.lam[0]) * r
         cost_g = cost_g + torch.sum(r * r)
+    return _with_linear_terms(sh, sha, asm, cost_g)
+
+
+def _with_linear_terms(sh, sha, asm: BlockAssembly, cost_g) -> torch.Tensor:
+    """`0.5·‖r‖²` from the E_g part `cost_g` (Σ r²) and the closed-form
+    linear terms."""
     r_r, r_s, r_a, _, _, _ = _linear_terms(sh, sha, asm)
     return 0.5 * (cost_g + torch.sum(r_r * r_r) + torch.sum(r_s * r_s) + torch.sum(r_a * r_a))
 

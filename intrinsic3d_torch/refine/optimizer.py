@@ -44,6 +44,7 @@ from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
 from intrinsic3d_torch.mathutil import compute_varying_lambda, pyramid_level_to_scale
 from intrinsic3d_torch.refine.assembly import LevelTopology, build_assembly, level_topology
 from intrinsic3d_torch.refine.blockform import (
+    EG_PASSES,
     bucket_ladder_down,
     build_frame_buckets,
     layout_plans,
@@ -512,8 +513,10 @@ class OptimizeStats:
     clock; every iteration ends on a host read of its costs), the seconds
     of its `LevelPrep` thread (0 without one), its device-to-host reads
     from its first outer step to its last (`timer.HOST_READS`, every site;
-    the flat table's `.cpu()` pulls of the intrinsics are not counted) and,
-    on the card, its peak allocated bytes."""
+    the flat table's `.cpu()` pulls of the intrinsics are not counted), its
+    E_g passes (`blockform.EG_PASSES`: one a frame chunk of a linearization
+    or an acceptance cost, through the E_g kernel or eager) and, on the
+    card, its peak allocated bytes."""
 
     costs_before: list
     costs_after: list
@@ -528,6 +531,8 @@ class OptimizeStats:
     prefetch_seconds: float = 0.0
     iter_seconds: list = dataclasses.field(default_factory=list)
     host_reads: int = 0
+    eg_fused: int = 0
+    eg_eager: int = 0
     peak_bytes: int = 0
     brick_rows: int = 0  # under a mesh: the rank's block rows m
     halo_rows: tuple = ()  # under a mesh: rows exchanged per active mesh shift
@@ -636,6 +641,11 @@ def optimize_level(
             itr, stats.costs_before[-1], stats.costs_after[-1], stats.tries[-1], stats.mus[-1],
         )
 
+    def record_reads(reads0, passes0):
+        stats.host_reads = host_reads() - reads0
+        stats.eg_fused = EG_PASSES["fused"] - passes0["fused"]
+        stats.eg_eager = EG_PASSES["eager"] - passes0["eager"]
+
     def finish(mu):
         if dev.type == "cuda":
             stats.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
@@ -647,7 +657,7 @@ def optimize_level(
         topo = level_topology(grid) if topo is None else topo
         stats.reason = "flat table"
         stats.setup_seconds = time.perf_counter() - t0
-        reads0 = host_reads()
+        reads0, passes0 = host_reads(), dict(EG_PASSES)
         with span(f"solve[{tag}]", phase=True):
             for itr in range(cfg.iterations):
                 t0 = time.perf_counter()
@@ -672,7 +682,7 @@ def optimize_level(
                 )
                 params, mu = out[0], out[3]
                 record_iteration(itr, t0, out)
-        stats.host_reads = host_reads() - reads0
+        record_reads(reads0, passes0)
         return params, finish(mu), stats
 
     inputs = None
@@ -752,7 +762,7 @@ def optimize_level(
         lm_steps=cfg.lm_steps, cg_iters=cg_iters, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs,
         cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta,
     )
-    reads0 = host_reads()
+    reads0, passes0 = host_reads(), dict(EG_PASSES)
     with span(f"solve[{tag}]", phase=True):
         for itr in range(cfg.iterations):
             t0 = time.perf_counter()
@@ -792,7 +802,7 @@ def optimize_level(
                 out = level._replace(lambdas=lambdas).outer_step(bparams, depths_level, images_level, mu, **solver)
             bparams, mu = out[0], out[3]
             record_iteration(itr, t0, out)
-    stats.host_reads = host_reads() - reads0
+    record_reads(reads0, passes0)
     if mesh is not None:
         bparams = level.finish(bparams)
     return params_from_block(layout, bparams), finish(mu), stats

@@ -214,8 +214,9 @@ def test_outer_step_on_the_card_matches_the_cpu_path(cuda_device):
 def test_bucketed_streamed_level_on_the_card_matches_the_cpu_path(cuda_device):
     """A level of the 3-frame sphere in frame-bucketed elements streamed in 2
     frame chunks (`frame_bucketing="always"` at a budget the planner streams
-    in 2 chunks): the card (K1 and K2 over bucket rows, chunked, scatter-adds
-    by atomics) against the plain versions on the CPU at converged-solve
+    in 2 chunks): the card (the E_g kernel and K2 over bucket rows, chunked,
+    scatter-adds by atomics) against the eager E_g pass and the plain
+    versions on the CPU at converged-solve
     settings (float32 coefficients, 100 CG steps, η = 1e-8): the same plan
     and tries, costs rtol 1e-3, the refined sdf within 1e-4 m."""
     from intrinsic3d_torch.config import RefinementConfig
@@ -239,7 +240,7 @@ def test_bucketed_streamed_level_on_the_card_matches_the_cpu_path(cuda_device):
         runs[device] = (st, params, dict(build.LAUNCHES))
     (tst, tp, tn), (cst, cp, cn) = runs["cuda"], runs["cpu"]
     assert tst.reason == cst.reason and tst.eg_chunks == cst.eg_chunks == 2 and tst.bucket_blocks == 56
-    assert tn["bicubic_rows_fwdgrad"] > 0 and tn["bicubic_rows_fwd"] > 0 and tn["nearest_rows"] > 0
+    assert tn["eg_rows_lin"] > 0 and tn["eg_rows_value"] > 0 and tn["nearest_rows"] > 0
     assert cn == NO_LAUNCHES
     assert tst.tries == cst.tries
     np.testing.assert_allclose(tst.costs_before + tst.costs_after, cst.costs_before + cst.costs_after, rtol=1e-3)
@@ -345,8 +346,9 @@ def test_fusion_on_the_card_matches_the_cpu_path(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
     """The JAX package's end-to-end scene (5 frames at 96×72, 2 grid and 2
-    pyramid levels) refined from one fused grid on the card (K1, K2) and on
-    the CPU (their plain versions) at converged solver settings (float32
+    pyramid levels) refined from one fused grid on the card (the E_g kernel,
+    K2) and on the CPU (the eager E_g pass, K2's plain version) at converged
+    solver settings (float32
     coefficients, 100 CG steps, η = 1e-8): the same schedule and LM tries,
     per-level costs rtol 1e-3, the same final voxel set, refined sdf atol
     1e-4 m, albedo atol 1e-3 and color atol 0.5 (0..255) — reductions in
@@ -369,7 +371,7 @@ def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
         build.reset_launches()
         runs[device] = (levels, engine.refine(fused), dict(build.LAUNCHES))
     (tl, tg, tn), (cl, cg, cn) = runs["cuda"], runs["cpu"]
-    assert tn["bicubic_rows_fwdgrad"] > 0 and tn["bicubic_rows_fwd"] > 0 and tn["nearest_rows"] > 0
+    assert tn["eg_rows_lin"] > 0 and tn["eg_rows_value"] > 0 and tn["nearest_rows"] > 0
     assert cn == NO_LAUNCHES
     assert [lv[:2] for lv in tl] == [lv[:2] for lv in cl] == [(1, 1), (1, 0), (0, 0)]
     for (_, _, a), (_, _, b) in zip(tl, cl):
@@ -388,8 +390,8 @@ def test_level_with_a_prep_on_the_card_matches_the_serial_level(cuda_device):
     host half built by a `LevelPrep` thread (started before and joined in
     `optimize_level`) and serially: the same plan, bucket width and chunks,
     first cost within rtol 1e-6 (the same inputs through atomic
-    scatter-adds), costs rtol 1e-3 after it, K1a, K1b and K2 launched by
-    both runs, and no prep thread left."""
+    scatter-adds), costs rtol 1e-3 after it, the E_g kernel (both modes)
+    and K2 launched by both runs, and no prep thread left."""
     import threading
 
     from intrinsic3d_torch.config import RefinementConfig
@@ -419,9 +421,217 @@ def test_level_with_a_prep_on_the_card_matches_the_serial_level(cuda_device):
     np.testing.assert_allclose(a.costs_before[0], b.costs_before[0], rtol=1e-6)
     np.testing.assert_allclose(a.costs_before + a.costs_after, b.costs_before + b.costs_after, rtol=1e-3)
     for launches in (la, lb):
-        assert launches["bicubic_rows_fwd"] > 0 and launches["bicubic_rows_fwdgrad"] > 0
+        assert launches["eg_rows_lin"] > 0 and launches["eg_rows_value"] > 0
         assert launches["nearest_rows"] > 0
     assert not [t for t in threading.enumerate() if t.name.startswith(HostPrep.THREAD_PREFIX)]
+
+
+# ---------------------------------------------------------------------------
+# The E_g element pass (csrc/eg_rows.cu)
+# ---------------------------------------------------------------------------
+
+
+def _eg_scene(device, block=8, bucketed=False):
+    """The 5-frame sphere's level on `device` (tests/test_torch_eg_rows.py's
+    scene): its assembly at the start point, dense or frame-bucketed (pad
+    bucket rows), with `block`³-lane blocks (3: 27 lanes and an odd block
+    count, so chunks end in a ragged tail and start unaligned), and a
+    candidate point whose frame 0 sits at the sphere's centre, so that
+    active elements fall behind the camera and outside the image beside
+    valid ones. Returns (params, assembly)."""
+    from intrinsic3d_torch.grid.blocks import BlockLayout
+    from intrinsic3d_torch.mathutil import transform_points
+    from intrinsic3d_torch.refine import blockform
+    from intrinsic3d_torch.refine.optimizer import _bmap_on, prepare_level
+    from intrinsic3d_torch.synthetic import DEFAULT_CENTER, build_sphere_problem
+
+    prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), num_frames=5, num_observations=3,
+                                perturb_sdf=0.002, perturb_albedo=0.05, device=device)
+    layout = BlockLayout.build(prob.grid, block=block, blocks_multiple=8 if block == 8 else 1)
+    bmap = None
+    if bucketed:
+        bmap = blockform.build_frame_buckets(layout, prob.params.poses.cpu().numpy(), prob.params.intr.cpu().numpy(),
+                                             64, 48, prob.grid.voxel_size, depths=prob.depths.cpu().numpy(),
+                                             occlusion=0.02)
+    level = prepare_level(prob.grid, prob.topo, prob.voxel_sh, prob.params, prob.cfg, prob.thres_shell, 64, 48,
+                          (prob.cfg.lambda_g, 10.0, 10.0, prob.cfg.lambda_a), device=device, layout=layout)
+    level = level._replace(bmap=_bmap_on(bmap, torch.device(device)))
+    asm, _ = level.assemble(level.params, prob.depths, prob.images)
+    poses = level.params.poses.clone()
+    centre = torch.as_tensor(DEFAULT_CENTER, dtype=torch.float32, device=device)
+    poses[0, 5] -= transform_points(poses[0], centre)[2]
+    return level.params._replace(poses=poses), asm
+
+
+def _field_close(got, want, rel, bf16=False):
+    """Within `rel` x the field's largest magnitude (in float64), with
+    `bf16` besides within one bfloat16 ulp of `want`."""
+    got, w64 = got.double(), want.double()
+    slack = rel * float(w64.abs().max())
+    if bf16:
+        slack = slack + torch.pow(2.0, torch.floor(torch.log2(torch.clamp(w64.abs(), min=2.0**-126))) - 7)
+    assert bool(((got - w64).abs() <= slack).all()), float((got - w64).abs().max())
+
+
+EG_CASES = [(8, False, False), (8, True, False), (3, False, False), (8, False, True)]
+# the float32 element function is only so well conditioned: on this scene the
+# plain version's own float32 error against its float64 evaluation reaches
+# 1.4e-5 of the residual's largest magnitude and 4e-5 to 9e-5 of each
+# coefficient field's (the normal's 1/|g| and the shading difference cancel
+# most of their terms), so the kernel is held to the float64 evaluation at
+# twice the largest
+EG_REL = 2e-4
+
+
+def _eg_float64(x):
+    from intrinsic3d_torch.ops import eg_rows
+
+    return eg_rows.EgRowsInputs(*[t if t is None or not t.is_floating_point() else t.double() for t in x])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "value"])
+@pytest.mark.parametrize("block,bucketed,strided", EG_CASES, ids=["dense", "bucketed", "ragged", "strided"])
+def test_eg_rows_kernel_matches_plain(cuda_device, block, bucketed, strided, mode):
+    """The E_g kernel over three frame chunks (2, 2 and 1 rows) against
+    `eg_rows_plain` evaluated in float64 on the card: residuals, float32
+    coefficients and the value mode's partial sums within `EG_REL` x each
+    field's largest magnitude, bfloat16 fields besides within one ulp; one
+    launch a chunk. `strided`: the weights, the per-slot SH and positions
+    are views into wider tensors (a rank's brick of the multi-device path)
+    and the poses a transposed copy."""
+    from intrinsic3d_torch.ops import eg_rows
+    from intrinsic3d_torch.refine import blockform
+
+    params, asm = _eg_scene("cuda", block, bucketed)
+    sh, sha = asm.sdf_plan.apply(params.sdf), asm.alb_plan.apply(params.albedo)
+    x = blockform._eg_inputs(asm, sh, sha, params)
+    k, kb, s = asm.eg_w.shape
+    if strided:
+        d = x.sh.shape[1]
+        x = x._replace(sh=torch.cat([x.sh, x.sh[:, :100]], dim=1)[:, :d],
+                       vpos=torch.cat([x.vpos[:, :36], x.vpos], dim=1)[:, 36:], poses=x.poses.T.contiguous().T)
+        asm = asm._replace(eg_w=torch.cat([asm.eg_w, asm.eg_w[:, :1]], dim=1)[:, :kb])
+        assert not any(t.is_contiguous() for t in (x.sh, x.vpos, x.poses, asm.eg_w))
+    x64 = _eg_float64(x)
+    chunks = blockform._frame_chunks(k, 3)
+    build.reset_launches()
+    if mode == "value":
+        got = [eg_rows.eg_rows_value(x, asm.eg_w[lo:lo + n], lo) for lo, n in chunks]
+        torch.cuda.synchronize()
+        assert build.LAUNCHES == dict(NO_LAUNCHES, eg_rows_value=3)
+        for (lo, n), (r, part) in zip(chunks, got):
+            want, _ = eg_rows.eg_rows_plain(x64, asm.eg_w[lo:lo + n].double(), lo, lin=False)
+            _field_close(r.reshape(-1), want, EG_REL)
+            _field_close(part, eg_rows._value_partials(want), EG_REL)
+        return
+    dt = getattr(torch, mode)
+    r0 = torch.full((k, kb, s), float("nan"), device="cuda")
+    coeffs = [torch.full((f, k, kb, s), float("nan"), device="cuda", dtype=dt) for f in eg_rows.FIELDS]
+    for lo, n in chunks:
+        eg_rows.eg_rows_lin(x, asm.eg_w[lo:lo + n], lo, r0, coeffs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == dict(NO_LAUNCHES, eg_rows_lin=3)
+    want = [eg_rows.eg_rows_plain(x64, asm.eg_w[lo:lo + n].double(), lo, lin=True) for lo, n in chunks]
+    _field_close(r0.reshape(-1), torch.cat([w[0] for w in want]), EG_REL)
+    want_c = torch.cat([w[1].view(29, -1, kb, s) for w in want], dim=1)
+    at = 0
+    for c, f in zip(coeffs, eg_rows.FIELDS):
+        _field_close(c, want_c[at:at + f], EG_REL, bf16=dt == torch.bfloat16)
+        at += f
+    assert int((r0 != 0).sum()) > 1000 and int((r0 == 0).sum()) > 0.8 * r0.numel()
+
+
+@pytest.mark.cuda
+def test_eg_rows_kernel_all_inactive(cuda_device):
+    """Zero weights: every output 0 (written over NaN), partial sums 0."""
+    from intrinsic3d_torch.ops import eg_rows
+    from intrinsic3d_torch.refine import blockform
+
+    params, asm = _eg_scene("cuda", 3, False)
+    sh, sha = asm.sdf_plan.apply(params.sdf), asm.alb_plan.apply(params.albedo)
+    x = blockform._eg_inputs(asm, sh, sha, params)
+    w0 = torch.zeros_like(asm.eg_w)
+    r0 = torch.full(w0.shape, float("nan"), device="cuda")
+    coeffs = [torch.full((f, *w0.shape), float("nan"), device="cuda", dtype=torch.bfloat16) for f in eg_rows.FIELDS]
+    eg_rows.eg_rows_lin(x, w0[1:], 1, r0, coeffs)
+    r, part = eg_rows.eg_rows_value(x, w0, 0)
+    torch.cuda.synchronize()
+    assert bool((r0[1:] == 0).all()) and bool(r0[0].isnan().all())
+    assert all(bool((c[:, 1:] == 0).all()) and bool(c[:, 0].isnan().all()) for c in coeffs)
+    assert bool((r == 0).all()) and bool((part == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_eg_pass_on_the_card_launches_once_a_chunk_and_reads_nothing_back(cuda_device, monkeypatch, chunks):
+    """`linearize_block_chunked` and `block_total_cost` on the card: one E_g
+    kernel launch a frame chunk in each, no sampler launch, no autograd, no
+    host read counted (`timer.HOST_READS`) and none at all (the CUDA sync
+    debug mode raises on a synchronizing call: a scalar read or a
+    synchronous upload); the fused pass counted in `EG_PASSES`."""
+    from intrinsic3d_torch import timer
+    from intrinsic3d_torch.refine import blockform
+
+    params, asm = _eg_scene("cuda", 8, True)
+    blockform.linearize_block_chunked(params, asm, chunks, torch.bfloat16)  # builds the kernel
+    torch.cuda.synchronize()
+
+    def no_autograd(*a, **kw):
+        raise AssertionError("torch.autograd.grad reached on the card's block path")
+
+    monkeypatch.setattr(torch.autograd, "grad", no_autograd)
+    reads, passes = dict(timer.HOST_READS), dict(blockform.EG_PASSES)
+    build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cost0, lin = blockform.linearize_block_chunked(params, asm, chunks, torch.bfloat16)
+        cost = blockform.block_total_cost(params, asm, chunks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert build.LAUNCHES == dict(NO_LAUNCHES, eg_rows_lin=chunks, eg_rows_value=chunks)
+    assert timer.HOST_READS == reads
+    assert blockform.EG_PASSES == dict(passes, fused=passes["fused"] + 2 * chunks)
+    assert lin.a_sdf.dtype == torch.bfloat16
+    torch.testing.assert_close(cost, cost0, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_level_through_the_eg_kernel_matches_the_eager_cpu_level(cuda_device):
+    """Three outer iterations of `optimize_level` on the small sphere of
+    `test_blockform.py` (poses free): the card, every E_g pass through the
+    kernel, against the CPU, every pass eager, at converged-solve settings
+    (float32 coefficients, 100 CG steps, η = 1e-8), held to the bounds
+    `test_blockform.py` holds one GN step to (first cost rtol 1e-5, its
+    accepted cost rtol 1e-3) and a 3-iteration trajectory to (costs rtol
+    1e-2, sdf and poses rtol 5e-2, atol 1e-4; no accepted cost above its
+    start). Each outer step re-collects the observations, so the trajectory
+    is chaotic at rounding scale: on the CPU, the eager path started from
+    an sdf one ulp away moved these costs by up to 0.7% and the poses by
+    1e-3."""
+    from intrinsic3d_torch.config import RefinementConfig
+    from intrinsic3d_torch.refine import optimizer as opt
+    from intrinsic3d_torch.synthetic import build_sphere_problem
+
+    cfg = RefinementConfig(num_observations=2, occlusion_distance=0.02, iterations=3, lm_steps=4, fix_poses=False)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2,
+                                    perturb_sdf=0.002, perturb_albedo=0.05, cfg=cfg, device=device)
+        build.reset_launches()
+        params, _, st = opt.optimize_level(prob.grid, prob.topo, prob.params, cfg, prob.cam, prob.depths,
+                                           prob.images, prob.voxel_sh, prob.thres_shell, 0, cg_iters=100,
+                                           cg_eta=1e-8, cg_coeff_dtype="float32", device=device)
+        runs[device] = (st, params, dict(build.LAUNCHES))
+    (tst, tp, tn), (cst, cp, cn) = runs["cuda"], runs["cpu"]
+    assert tst.eg_fused > 0 and tst.eg_eager == 0 and cst.eg_fused == 0 and cst.eg_eager > 0
+    assert tn["bicubic_rows_fwd"] == tn["bicubic_rows_fwdgrad"] == 0 and cn == NO_LAUNCHES
+    np.testing.assert_allclose(tst.costs_before[0], cst.costs_before[0], rtol=1e-5)
+    np.testing.assert_allclose(tst.costs_after[0], cst.costs_after[0], rtol=1e-3)
+    np.testing.assert_allclose(tst.costs_before + tst.costs_after, cst.costs_before + cst.costs_after, rtol=1e-2)
+    assert all(c1 <= c0 for c0, c1 in zip(tst.costs_before, tst.costs_after))
+    np.testing.assert_allclose(tp.sdf.cpu().numpy(), cp.sdf.numpy(), rtol=5e-2, atol=1e-4)
+    np.testing.assert_allclose(tp.poses.cpu().numpy(), cp.poses.numpy(), rtol=5e-2, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
