@@ -223,7 +223,9 @@ class RefinementConfig:
     # frame-capped
     frame_bucketing: str = "auto"
     # eliminate the dense global block {poses, intrinsics, distortion} from
-    # the PCG through its damped Gram matrix (refine/solver.py)
+    # the PCG through its damped Gram matrix (refine/solver.py); a free
+    # camera's intrinsics and distortion stay in the PCG
+    # (refine/optimizer.py::level_schur)
     schur_globals: bool = True
     # pose-observability gate (refine/device_assembly.py); 0 disables
     min_pose_obs: int = 24

@@ -267,7 +267,7 @@ def halo_task(mesh: Mesh, bprob: dict, seed: int = 0) -> dict:
     return out
 
 
-def spmd_step_task(mesh: Mesh, bprob: dict, schur: bool = False, lm_steps: int = 3, cg_iters: int = 4,
+def spmd_step_task(mesh: Mesh, bprob: dict, schur=False, lm_steps: int = 3, cg_iters: int = 4,
                    cg_coeff_dtype: str = "bfloat16") -> dict:
     """One `spmd_gn_iteration` of the global block problem `bprob`, and the
     single-device `gn_iteration` of the same problem on the rank's device:
@@ -540,14 +540,15 @@ def dryrun_rank(mesh: Mesh) -> List[str]:
             raise AssertionError(f"sharded {name} plan differs from the single-device plan: {r}")
     lines.append(f"dryrun({n}) halo: sharded shift plans == single-device plans, adjoint "
                  f"{halo['sdf']['adjoint'][0]:.9e} == {halo['sdf']['adjoint'][1]:.9e}")
-    for schur in (False, True):
+    for schur in (False, True, "poses"):
         r = spmd_step_task(mesh, bprob, schur=schur)
         sp, one = r["spmd"], r["single"]
         if not (np.isfinite(sp["cost0"]) and sp["cost1"] <= sp["cost0"]):
             raise AssertionError(f"spmd step did not decrease the cost: {sp['cost0']} -> {sp['cost1']}")
         if abs(sp["cost0"] - one["cost0"]) > 1e-4 * max(1.0, abs(one["cost0"])):
             raise AssertionError(f"spmd cost {sp['cost0']} != single-device {one['cost0']}")
-        lines.append(f"dryrun({n}) spmd{'[schur]' if schur else ''}: cost {sp['cost0']:.6e} -> {sp['cost1']:.6e} "
+        tag = {False: "", True: "[schur]", "poses": "[schur:poses]"}[schur]
+        lines.append(f"dryrun({n}) spmd{tag}: cost {sp['cost0']:.6e} -> {sp['cost1']:.6e} "
                      f"({sp['tries']} LM tries; single-device {one['cost0']:.6e} -> {one['cost1']:.6e}); "
                      f"brick {r['m']} rows, halo rows {r['hs']} over shifts {r['shifts']}, collectives "
                      f"{r['collectives']}")

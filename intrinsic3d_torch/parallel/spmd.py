@@ -323,7 +323,7 @@ def spmd_gn_iteration(
     cg_iters: int = 12,
     cg_coeff_dtype: str = "bfloat16",
     ctx: Optional[SpmdContext] = None,
-    schur_globals: bool = False,
+    schur_globals=False,
 ):
     """One relinearize→solve→accept cycle under spatial block sharding.
 
@@ -393,7 +393,7 @@ class SpmdLevel:
         cg_eta: float = 0.1,
         ctx: Optional[SpmdContext] = None,
         eg_sh_device: Optional[torch.Tensor] = None,
-        schur_globals: bool = False,
+        schur_globals=False,
         min_pose_obs: int = 0,
         eg_chunks: int = 1,
     ):

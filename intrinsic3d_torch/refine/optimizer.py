@@ -248,7 +248,7 @@ def fused_outer_step(
     use_albedo: bool,
     lm_steps: int,
     cg_iters: int,
-    schur_globals: bool = False,
+    schur_globals=False,
     min_pose_obs: int = 0,
     cg_coeff_dtype: str = "bfloat16",
     cg_eta: float = 0.1,
@@ -294,6 +294,28 @@ def fused_outer_step(
         cg_coeff_dtype=cg_coeff_dtype, schur_globals=schur_globals, cg_eta=cg_eta, eg_chunks=eg_chunks,
         device=device,
     )
+
+
+def level_schur(cfg: RefinementConfig):
+    """`gn_iteration`'s `schur_globals` for the level solves of `cfg`: with
+    `cfg.schur_globals` the poses are eliminated exactly, and the camera's
+    intrinsics and distortion with them only while the camera is held.
+    Free, the camera stays in the PCG ("poses"), as in the reference's
+    joint CGNR. Its 9 columns are dense over every element and couple every
+    frame's pose, and some directions of that coupling are barely observed
+    (the focal length against the cameras' distance, the principal point
+    against their rotation). On the observations of one outer step the
+    energy still falls far along them: the exact elimination steps there,
+    and the observations the next outer steps collect through that camera
+    hold fewer and fewer of the frames' points. Measured on an H100 on the
+    `orbit10kf-globals` capture: fx 591.7 → 680 → 966 in two steps, no
+    element of any LM try leaving the images, and no E_g element left from
+    the third step on; in the PCG, fx ends near 579. Only the PCG's early
+    exit (12 steps, η = 0.1) holds the camera back: at converged settings
+    the two take the same step."""
+    if not cfg.schur_globals:
+        return False
+    return True if cfg.fix_intrinsics and cfg.fix_distortion else "poses"
 
 
 class LevelSetup(NamedTuple):
@@ -759,7 +781,7 @@ def optimize_level(
     )
 
     solver = dict(
-        lm_steps=cfg.lm_steps, cg_iters=cg_iters, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs,
+        lm_steps=cfg.lm_steps, cg_iters=cg_iters, schur_globals=level_schur(cfg), min_pose_obs=cfg.min_pose_obs,
         cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta,
     )
     reads0, passes0 = host_reads(), dict(EG_PASSES)
@@ -823,6 +845,6 @@ def _spmd_level(mesh, ctx, layout, grid, host, eg_sh, cfg, thres_shell, pyr_scal
         occlusion_distance=float(cfg.occlusion_distance), fix_poses=cfg.fix_poses,
         fix_intrinsics=cfg.fix_intrinsics, fix_distortion=cfg.fix_distortion, use_albedo=cfg.lambda_a >= 0.0,
         bmap=fb, lm_steps=cfg.lm_steps, cg_iters=cg_iters, cg_coeff_dtype=cg_coeff_dtype, cg_eta=cg_eta, ctx=ctx,
-        eg_sh_device=eg_sh, schur_globals=cfg.schur_globals, min_pose_obs=cfg.min_pose_obs, eg_chunks=eg_chunks,
+        eg_sh_device=eg_sh, schur_globals=level_schur(cfg), min_pose_obs=cfg.min_pose_obs, eg_chunks=eg_chunks,
     )
 

@@ -11,7 +11,9 @@ dispatches on the assembly type, as the JAX function does:
   (`blockform.linearize_block`, one reverse pass for the E_g element
   Jacobian). With `schur_globals=True` the dense global block {poses,
   intrinsics, distortion} is eliminated exactly through its damped [G, G]
-  Gram matrix and the PCG runs on the voxel space only. With
+  Gram matrix and the PCG runs on the voxel space only; with
+  `schur_globals="poses"` the poses alone are eliminated and the camera's
+  intrinsics and distortion stay in the PCG beside the voxels. With
   `eg_chunks > 1` the E_g linearization and the LM acceptance forward are
   streamed over frame chunks (`blockform.linearize_block_chunked`,
   `blockform.block_total_cost`).
@@ -27,7 +29,9 @@ and each LM try its acceptance, one device→host sync each (at most
 lm_steps × (cg_iters + 2) per call), counted in `timer.HOST_READS`. The
 linearization runs in a `solve.assemble` span and each LM try (its PCG, the
 candidate's cost and the acceptance read) in a `solve.lm_try` span
-(`timer.span`).
+(`timer.span`); the Schur branch's global block (its Gram matrix, each
+try's damped factorization and the back-substitution) in `solve.globals`
+spans.
 
 With `mesh` (a `parallel.sharding.Mesh`; the JAX function's `axis_name`)
 the block branch runs on one rank's brick of a spatially sharded problem
@@ -202,7 +206,7 @@ def gn_iteration(
     lm_steps: int = 50,
     cg_iters: int = 12,
     cg_coeff_dtype: str = "bfloat16",
-    schur_globals: bool = False,
+    schur_globals=False,
     cg_eta: float = 0.1,
     eg_chunks: int = 1,
     device="cuda",
@@ -216,7 +220,8 @@ def gn_iteration(
     storage type of the E_g coefficient fields inside the PCG loop
     ("float32" for exact products; the gradient, the Jacobi diagonal, the
     residuals and every accumulation stay float32); `schur_globals`
-    eliminates the global block; `eg_chunks > 1` streams the E_g
+    eliminates the global block (True) or its poses alone ("poses");
+    `eg_chunks > 1` streams the E_g
     linearization and the LM acceptance cost over that many frame chunks:
     only the coefficient fields, in `cg_coeff_dtype`, persist through the
     PCG, and the gradient, diagonal and global Gram are taken from those
@@ -280,20 +285,44 @@ def gn_iteration(
 
     if schur_globals:
         k = params.poses.shape[0]
-        C = psum_scalar(blockform.global_gram(lin))
-        mg = blockform.flatten_globals(masks.poses, masks.intr, masks.dist)
-        dg = blockform.flatten_globals(diag.poses, diag.intr, diag.dist)
-        bg = blockform.flatten_globals(b.poses, b.intr, b.dist)
+        # "poses": the Schur block holds the poses; the camera's intrinsics
+        # and distortion stay in the PCG beside the voxels
+        cam = schur_globals == "poses"
+        with span("solve.globals"):
+            C = psum_scalar(blockform.global_gram(lin))
+            keep = 0.0 if cam else 1.0
+            mg = blockform.flatten_globals(masks.poses, keep * masks.intr, keep * masks.dist)
+            dg = blockform.flatten_globals(diag.poses, diag.intr, diag.dist)
+            bg = blockform.flatten_globals(b.poses, b.intr, b.dist)
         zerog = (torch.zeros_like(params.poses), torch.zeros_like(params.intr), torch.zeros_like(params.dist))
+        # the PCG's leaves, their masks and diagonals
+        m2 = (masks.sdf, masks.albedo) + ((masks.intr, masks.dist) if cam else ())
+        d2 = (diag.sdf, diag.albedo) + ((diag.intr, diag.dist) if cam else ())
+
+        def tangent(v2):
+            """J·v of the PCG's leaves (the poses' tangent zero)."""
+            y = blockform.jv_block(lin, asm, Params(v2[0], v2[1], *zerog), include_globals=False)
+            if not cam:
+                return y
+            return (y[0] + blockform.jg_apply(lin, zerog[0], v2[2], v2[3]),) + y[1:]
+
+        def cotangent(y):
+            """Jᵀ·y on the PCG's leaves."""
+            out = blockform.jtv_block(lin, asm, y, include_globals=False)
+            if not cam:
+                return out.sdf, out.albedo
+            _, gi, gd = psum_g3(*blockform.jgt_apply(lin, y[0]))
+            return out.sdf, out.albedo, gi, gd
 
         def try_step(mu):
-            # damped global Gram, fixed dims pinned to identity
-            Ct = mg[:, None] * (C + mu * torch.diag(dg)) * mg[None, :]
-            Ct = Ct + torch.diag(torch.where(mg > 0.0, 1e-12, 1.0))
-            chol_g, info = torch.linalg.cholesky_ex(Ct)
-            # a failed factorization gives NaN, as jnp.linalg.cholesky does:
-            # the try is then rejected on its non-finite cost
-            chol_g = torch.where(info == 0, chol_g, torch.full_like(chol_g, float("nan")))
+            with span("solve.globals"):
+                # damped global Gram, fixed dims pinned to identity
+                Ct = mg[:, None] * (C + mu * torch.diag(dg)) * mg[None, :]
+                Ct = Ct + torch.diag(torch.where(mg > 0.0, 1e-12, 1.0))
+                chol_g, info = torch.linalg.cholesky_ex(Ct)
+                # a failed factorization gives NaN, as jnp.linalg.cholesky
+                # does: the try is then rejected on its non-finite cost
+                chol_g = torch.where(info == 0, chol_g, torch.full_like(chol_g, float("nan")))
 
             def csolve(z):
                 zc = (mg * z)[:, None]
@@ -301,52 +330,43 @@ def gn_iteration(
                 u = torch.linalg.solve_triangular(chol_g.T, u, upper=True)
                 return mg * u[:, 0]
 
-            def reduced_apply(vs, va):
-                y_g, y_r, y_s, y_a = blockform.jv_block(lin, asm, Params(vs, va, *zerog), include_globals=False)
+            def reduced_apply(v2):
+                y_g, y_r, y_s, y_a = tangent(v2)
                 z = blockform.flatten_globals(*psum_g3(*blockform.jgt_apply(lin, y_g)))
                 up, ui, ud = blockform.unflatten_globals(csolve(z), k)
                 y_g2 = y_g - blockform.jg_apply(lin, up, ui, ud)
-                out = blockform.jtv_block(lin, asm, (y_g2, y_r, y_s, y_a), include_globals=False)
-                return out.sdf, out.albedo
+                return cotangent((y_g2, y_r, y_s, y_a))
 
             # reduced rhs: bᵥ − B·C̃⁻¹·b_g   (B·y = Jᵥᵀ(J_g y), E_g rows only)
             y0 = blockform.jg_apply(lin, *blockform.unflatten_globals(csolve(bg), k))
-            corr = blockform.jtv_block(
-                lin,
-                asm,
-                (y0, torch.zeros_like(lin.r0_r), torch.zeros_like(lin.r0_s), torch.zeros_like(lin.r0_a)),
-                include_globals=False,
-            )
-            b2 = (masks.sdf * (b.sdf - corr.sdf), masks.albedo * (b.albedo - corr.albedo))
+            corr = cotangent((y0, torch.zeros_like(lin.r0_r), torch.zeros_like(lin.r0_s), torch.zeros_like(lin.r0_a)))
+            b_own = (b.sdf, b.albedo) + ((b.intr, b.dist) if cam else ())
+            b2 = tuple(mi * (bi - ci) for mi, bi, ci in zip(m2, b_own, corr))
 
             def matvec(v2):
-                vs = masks.sdf * v2[0]
-                va = masks.albedo * v2[1]
-                hs, ha = reduced_apply(vs, va)
-                hs = hs + mu * diag.sdf * vs
-                ha = ha + mu * diag.albedo * va
-                return (
-                    masks.sdf * hs + (1.0 - masks.sdf) * v2[0],
-                    masks.albedo * ha + (1.0 - masks.albedo) * v2[1],
-                )
+                vm = tuple(mi * vi for mi, vi in zip(m2, v2))
+                h = reduced_apply(vm)
+                return tuple(mi * (hi + mu * di * vi) + (1.0 - mi) * wi
+                             for mi, hi, di, vi, wi in zip(m2, h, d2, vm, v2))
 
             def precond(r2):
-                return tuple(
-                    mi * ri / (di * (1.0 + mu) + 1e-12) + (1.0 - mi) * ri
-                    for ri, di, mi in zip(r2, (diag.sdf, diag.albedo), (masks.sdf, masks.albedo))
-                )
+                return tuple(mi * ri / (di * (1.0 + mu) + 1e-12) + (1.0 - mi) * ri for ri, di, mi in zip(r2, d2, m2))
 
             def tdot2(a2, c2):
-                return psum_scalar(torch.sum(a2[0] * c2[0]) + torch.sum(a2[1] * c2[1]))
+                own = psum_scalar(torch.sum(a2[0] * c2[0]) + torch.sum(a2[1] * c2[1]))
+                # the camera's leaves are replicated: counted once
+                return own + sum(torch.sum(x * y) for x, y in zip(a2[2:], c2[2:]))
 
-            (ds, da), _ = _pcg(matvec, precond, b2, cg_iters, eta=cg_eta, tdot=tdot2)
-            ds = masks.sdf * ds
-            da = masks.albedo * da
+            x2, _ = _pcg(matvec, precond, b2, cg_iters, eta=cg_eta, tdot=tdot2)
+            x2 = tuple(mi * xi for mi, xi in zip(m2, x2))
             # back-substitution: δ_g = C̃⁻¹(b_g − J_gᵀ Jᵥ δᵥ)
-            yv = blockform.jv_block(lin, asm, Params(ds, da, *zerog), include_globals=False)[0]
-            zv = blockform.flatten_globals(*psum_g3(*blockform.jgt_apply(lin, yv)))
-            dp, di_, dd = blockform.unflatten_globals(csolve(bg - zv), k)
-            delta = Params(ds, da, dp, di_, dd)
+            with span("solve.globals"):
+                yv = tangent(x2)[0]
+                zv = blockform.flatten_globals(*psum_g3(*blockform.jgt_apply(lin, yv)))
+                dp, di_, dd = blockform.unflatten_globals(csolve(bg - zv), k)
+            if cam:
+                di_, dd = x2[2], x2[3]
+            delta = Params(x2[0], x2[1], dp, di_, dd)
             cand = _tmap(lambda p, d: p + d, params, delta)
             return cand, cost_of(cand), lm_pred(delta, mu)
 

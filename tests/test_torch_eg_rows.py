@@ -7,7 +7,9 @@ runs (`blockform._eg_fused_lin`, `blockform._eg_fused_cost`, which on CPU
 tensors take the plain version), it must give `_eg_reverse`'s autograd
 residuals and coefficients and `block_total_cost`'s E_g cost. Cases: a dense
 and a frame-bucketed assembly (with pad bucket rows, at pyramid scale 0.5),
-one and three frame chunks, float32 and bfloat16 coefficient fields; the
+one and three frame chunks, float32 and bfloat16 coefficient fields, and a
+dense assembly of a capture rendered through a distorted lens, evaluated at
+that lens and at intrinsics moved off the rendering pinhole; the
 evaluation point moves one camera into the sphere, so that active elements
 have points at z ≤ 1e-6 and outside the bicubic support beside valid ones,
 and inactive elements make up most of the grid. Bounds: residuals rtol 1e-5;
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from intrinsic3d_torch.camera import distort
 from intrinsic3d_torch.mathutil import transform_points
 from intrinsic3d_torch.ops import build, eg_rows
 from intrinsic3d_torch.refine import blockform
@@ -28,28 +31,48 @@ from intrinsic3d_torch.refine.optimizer import _bmap_on
 from intrinsic3d_torch.synthetic import DEFAULT_CENTER, build_sphere_problem
 
 FIELD_NAMES = ("a_sdf", "a_alb", "a_pose", "a_intr", "a_dist")
+# the lens of tests/test_pose_refinement.py::test_distortion_recovery (k1 k2 k3 p1 p2)
+LENS = (0.08, -0.04, 0.0, 0.10, -0.06)
+
+
+def _sphere(dist=None):
+    """The 5-frame sphere on the CPU (rendered through `dist`): its level
+    and its dense assembly at the start point."""
+    prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), num_frames=5, num_observations=3,
+                                perturb_sdf=0.002, perturb_albedo=0.05, dist=dist, device="cpu")
+    level = prob.level()
+    return prob, level, level.assemble(level.params, prob.depths, prob.images)[0]
+
+
+def _into_the_sphere(params):
+    """`params` with frame 0's camera moved to the sphere's centre."""
+    poses = params.poses.clone()
+    centre = torch.as_tensor(DEFAULT_CENTER, dtype=torch.float32)
+    poses[0, 5] -= float(transform_points(poses[0], centre)[2])
+    return params._replace(poses=poses)
 
 
 @pytest.fixture(scope="module")
 def scene():
-    """The 5-frame sphere on the CPU: its dense and bucketed assemblies at
-    the start point, and a candidate point whose frame 0 sits at the
-    sphere's centre (half its elements behind the camera, most of the rest
-    outside the image)."""
-    prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), num_frames=5, num_observations=3,
-                                perturb_sdf=0.002, perturb_albedo=0.05, device="cpu")
-    level = prob.level()
-    dense, _ = level.assemble(level.params, prob.depths, prob.images)
+    """(assembly, candidate point) of each case: the sphere's dense and
+    bucketed assemblies at the start point with a candidate whose frame 0
+    sits at the sphere's centre (half its elements behind the camera, most
+    of the rest outside the image); the lens-rendered sphere's dense
+    assembly with the same move of frame 0, at the lens, and the candidate's
+    intrinsics off the pinhole (focal lengths x 1.005, principal point
+    +1.5, -1.0 px)."""
+    prob, level, dense = _sphere()
     fb = blockform.build_frame_buckets(level.layout, prob.params.poses.numpy(), prob.params.intr.numpy(), 64, 48,
                                        prob.grid.voxel_size, depths=prob.depths.numpy(), occlusion=0.02)
     bucketed, _ = level._replace(bmap=_bmap_on(fb, torch.device("cpu"))).assemble(level.params, prob.depths,
                                                                                   prob.images)
     bucketed = bucketed._replace(pyr_scale=torch.tensor(0.5))  # a coarser pyramid level's projection
-    poses = level.params.poses.clone()
-    centre = torch.as_tensor(DEFAULT_CENTER, dtype=torch.float32)
-    poses[0, 5] -= float(transform_points(poses[0], centre)[2])
-    cand = level.params._replace(poses=poses)
-    return dict(params=cand, dense=dense, bucketed=bucketed)
+    cand = _into_the_sphere(level.params)
+    _, lens_level, lens = _sphere(LENS)
+    lens_cand = _into_the_sphere(lens_level.params)
+    intr = lens_cand.intr * torch.tensor([1.005, 1.005, 1.0, 1.0]) + torch.tensor([0.0, 0.0, 1.5, -1.0])
+    lens_cand = lens_cand._replace(intr=intr)
+    return dict(dense=(dense, cand), bucketed=(bucketed, cand), lens=(lens, lens_cand))
 
 
 def _categories(asm, params):
@@ -66,8 +89,9 @@ def _categories(asm, params):
     z = pc[..., 2]
     zs = torch.where(z > 1e-6, z, torch.ones_like(z))
     fx, fy, cx, cy = params.intr * asm.pyr_scale
-    u = fx * pc[..., 0] / zs + cx
-    v = fy * pc[..., 1] / zs + cy
+    xd, yd = distort(params.dist, pc[..., 0] / zs, pc[..., 1] / zs)
+    u = fx * xd + cx
+    v = fy * yd + cy
     inside = (u >= 1) & (u < 62) & (v >= 1) & (v < 46)
     return (int((act & (z <= 1e-6)).sum()), int((act & (z > 1e-6) & ~inside).sum()),
             int((act & (z > 1e-6) & inside).sum()))
@@ -81,9 +105,12 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunks", [1, 3])
-@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+@pytest.mark.parametrize("layout", ["dense", "bucketed", "lens"])
 def test_eg_pass_matches_the_eager_path(scene, layout, chunks, dtype):
-    asm, params = scene[layout], scene["params"]
+    asm, params = scene[layout]
+    if layout == "lens":
+        # a nonzero lens, and intrinsics off the pinhole the frames were rendered through
+        assert int((params.dist != 0).sum()) == 4 and bool((params.intr != scene["dense"][1].intr).all())
     cdt = getattr(torch, dtype)
     k, kb, s = asm.eg_w.shape
     behind, outside, inside = _categories(asm, params)
@@ -138,7 +165,7 @@ def test_partial_sums_are_per_block_of_1024_elements():
 def test_cpu_level_solve_stays_eager(scene):
     """On CPU tensors the linearization and the acceptance cost take the
     eager path, one pass a chunk, and launch nothing."""
-    asm, params = scene["dense"], scene["params"]
+    asm, params = scene["dense"]
     before = dict(blockform.EG_PASSES)
     build.reset_launches()
     blockform.linearize_block_chunked(params, asm, 3, torch.bfloat16)
@@ -150,7 +177,7 @@ def test_cpu_level_solve_stays_eager(scene):
 
 
 def test_kernel_wrappers_refuse_mismatched_inputs(scene):
-    asm, params = scene["dense"], scene["params"]
+    asm, params = scene["dense"]
     sh = asm.sdf_plan.apply(params.sdf)
     sha = asm.alb_plan.apply(params.albedo)
     x = blockform._eg_inputs(asm, sh, sha, params)

@@ -431,14 +431,18 @@ def test_level_with_a_prep_on_the_card_matches_the_serial_level(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _eg_scene(device, block=8, bucketed=False):
+def _eg_scene(device, block=8, bucketed=False, lens=False):
     """The 5-frame sphere's level on `device` (tests/test_torch_eg_rows.py's
     scene): its assembly at the start point, dense or frame-bucketed (pad
     bucket rows), with `block`³-lane blocks (3: 27 lanes and an odd block
     count, so chunks end in a ragged tail and start unaligned), and a
     candidate point whose frame 0 sits at the sphere's centre, so that
     active elements fall behind the camera and outside the image beside
-    valid ones. Returns (params, assembly)."""
+    valid ones. With `lens` the frames are rendered through
+    tests/test_torch_eg_rows.py's distorted lens, the assembly and the
+    candidate take that lens, and the candidate's intrinsics lie off the
+    rendering pinhole (focal lengths x 1.005, principal point +1.5, -1.0
+    px). Returns (params, assembly)."""
     from intrinsic3d_torch.grid.blocks import BlockLayout
     from intrinsic3d_torch.mathutil import transform_points
     from intrinsic3d_torch.refine import blockform
@@ -446,7 +450,8 @@ def _eg_scene(device, block=8, bucketed=False):
     from intrinsic3d_torch.synthetic import DEFAULT_CENTER, build_sphere_problem
 
     prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), num_frames=5, num_observations=3,
-                                perturb_sdf=0.002, perturb_albedo=0.05, device=device)
+                                perturb_sdf=0.002, perturb_albedo=0.05, dist=EG_LENS if lens else None,
+                                device=device)
     layout = BlockLayout.build(prob.grid, block=block, blocks_multiple=8 if block == 8 else 1)
     bmap = None
     if bucketed:
@@ -460,7 +465,11 @@ def _eg_scene(device, block=8, bucketed=False):
     poses = level.params.poses.clone()
     centre = torch.as_tensor(DEFAULT_CENTER, dtype=torch.float32, device=device)
     poses[0, 5] -= transform_points(poses[0], centre)[2]
-    return level.params._replace(poses=poses), asm
+    params = level.params._replace(poses=poses)
+    if lens:
+        off = torch.tensor([0.0, 0.0, 1.5, -1.0], device=device)
+        params = params._replace(intr=params.intr * torch.tensor([1.005, 1.005, 1.0, 1.0], device=device) + off)
+    return params, asm
 
 
 def _field_close(got, want, rel, bf16=False):
@@ -473,7 +482,10 @@ def _field_close(got, want, rel, bf16=False):
     assert bool(((got - w64).abs() <= slack).all()), float((got - w64).abs().max())
 
 
-EG_CASES = [(8, False, False), (8, True, False), (3, False, False), (8, False, True)]
+# the lens of tests/test_pose_refinement.py::test_distortion_recovery (k1 k2 k3 p1 p2)
+EG_LENS = (0.08, -0.04, 0.0, 0.10, -0.06)
+EG_CASES = [(8, False, False, False), (8, True, False, False), (3, False, False, False), (8, False, True, False),
+            (8, False, False, True)]
 # the float32 element function is only so well conditioned: on this scene the
 # plain version's own float32 error against its float64 evaluation reaches
 # 1.4e-5 of the residual's largest magnitude and 4e-5 to 9e-5 of each
@@ -491,19 +503,21 @@ def _eg_float64(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["float32", "bfloat16", "value"])
-@pytest.mark.parametrize("block,bucketed,strided", EG_CASES, ids=["dense", "bucketed", "ragged", "strided"])
-def test_eg_rows_kernel_matches_plain(cuda_device, block, bucketed, strided, mode):
+@pytest.mark.parametrize("block,bucketed,strided,lens", EG_CASES,
+                         ids=["dense", "bucketed", "ragged", "strided", "lens"])
+def test_eg_rows_kernel_matches_plain(cuda_device, block, bucketed, strided, lens, mode):
     """The E_g kernel over three frame chunks (2, 2 and 1 rows) against
     `eg_rows_plain` evaluated in float64 on the card: residuals, float32
     coefficients and the value mode's partial sums within `EG_REL` x each
     field's largest magnitude, bfloat16 fields besides within one ulp; one
     launch a chunk. `strided`: the weights, the per-slot SH and positions
     are views into wider tensors (a rank's brick of the multi-device path)
-    and the poses a transposed copy."""
+    and the poses a transposed copy. `lens`: the distorted projection at a
+    nonzero lens and intrinsics off the pinhole (`_eg_scene`)."""
     from intrinsic3d_torch.ops import eg_rows
     from intrinsic3d_torch.refine import blockform
 
-    params, asm = _eg_scene("cuda", block, bucketed)
+    params, asm = _eg_scene("cuda", block, bucketed, lens)
     sh, sha = asm.sdf_plan.apply(params.sdf), asm.alb_plan.apply(params.albedo)
     x = blockform._eg_inputs(asm, sh, sha, params)
     k, kb, s = asm.eg_w.shape
@@ -596,34 +610,59 @@ def test_eg_pass_on_the_card_launches_once_a_chunk_and_reads_nothing_back(cuda_d
     torch.testing.assert_close(cost, cost0, rtol=1e-5, atol=0.0)
 
 
+# the level test's cases: (scene, level settings)
+LEVEL_CASES = {
+    # the camera held: three outer iterations of the 2-frame scene
+    "held": (dict(num_frames=2, num_observations=2), dict(iterations=3, fix_intrinsics=True, fix_distortion=True)),
+    # the camera free, in the PCG beside the voxels: one outer iteration of
+    # the 5-frame scene
+    "free": (dict(num_frames=5, num_observations=3), dict(iterations=1, fix_intrinsics=False, fix_distortion=False)),
+}
+
+
 @pytest.mark.cuda
-def test_level_through_the_eg_kernel_matches_the_eager_cpu_level(cuda_device):
-    """Three outer iterations of `optimize_level` on the small sphere of
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_level_through_the_eg_kernel_matches_the_eager_cpu_level(cuda_device, case):
+    """Outer iterations of `optimize_level` on the small sphere of
     `test_blockform.py` (poses free): the card, every E_g pass through the
     kernel, against the CPU, every pass eager, at converged-solve settings
     (float32 coefficients, 100 CG steps, η = 1e-8), held to the bounds
     `test_blockform.py` holds one GN step to (first cost rtol 1e-5, its
     accepted cost rtol 1e-3) and a 3-iteration trajectory to (costs rtol
     1e-2, sdf and poses rtol 5e-2, atol 1e-4; no accepted cost above its
-    start). Each outer step re-collects the observations, so the trajectory
-    is chaotic at rounding scale: on the CPU, the eager path started from
-    an sdf one ulp away moved these costs by up to 0.7% and the poses by
-    1e-3."""
+    start). Each outer step re-collects the observations, so the
+    trajectory is chaotic at rounding scale: on the CPU, the eager path
+    started from an sdf one ulp away moved these costs by up to 0.7% and
+    the poses by 1e-3.
+
+    "held": the camera held, three iterations of the 2-frame scene.
+    "free": the camera free (`optimizer.level_schur`: its intrinsics and
+    distortion in the PCG), its intrinsics and distortion held to the
+    trajectory's bounds too. On the 2-frame scene that PCG does not
+    converge in 100 steps and a 1e-7 relative change of the start's sdf
+    moved the 3-iteration costs by 45% on the CPU; on the 5-frame scene
+    the same change moved its 3-iteration poses to 0.9 of their bound, and
+    changes of ±1e-6 moved its first iteration's state to at most 0.24 of
+    the bounds. So the free case holds one outer iteration of the 5-frame
+    scene."""
     from intrinsic3d_torch.config import RefinementConfig
     from intrinsic3d_torch.refine import optimizer as opt
     from intrinsic3d_torch.synthetic import build_sphere_problem
 
-    cfg = RefinementConfig(num_observations=2, occlusion_distance=0.02, iterations=3, lm_steps=4, fix_poses=False)
+    scene, settings = LEVEL_CASES[case]
+    cfg = RefinementConfig(num_observations=scene["num_observations"], occlusion_distance=0.02, lm_steps=4,
+                           fix_poses=False, **settings)
+    assert opt.level_schur(cfg) == (True if case == "held" else "poses")
     runs = {}
     for device in ("cuda", "cpu"):
-        prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2,
-                                    perturb_sdf=0.002, perturb_albedo=0.05, cfg=cfg, device=device)
+        prob = build_sphere_problem(voxel_size=0.02, image_size=(64, 48), **scene, perturb_sdf=0.002,
+                                    perturb_albedo=0.05, cfg=cfg, device=device)
         build.reset_launches()
         params, _, st = opt.optimize_level(prob.grid, prob.topo, prob.params, cfg, prob.cam, prob.depths,
                                            prob.images, prob.voxel_sh, prob.thres_shell, 0, cg_iters=100,
                                            cg_eta=1e-8, cg_coeff_dtype="float32", device=device)
-        runs[device] = (st, params, dict(build.LAUNCHES))
-    (tst, tp, tn), (cst, cp, cn) = runs["cuda"], runs["cpu"]
+        runs[device] = (st, params, dict(build.LAUNCHES), prob.params)
+    (tst, tp, tn, _), (cst, cp, cn, start) = runs["cuda"], runs["cpu"]
     assert tst.eg_fused > 0 and tst.eg_eager == 0 and cst.eg_fused == 0 and cst.eg_eager > 0
     assert tn["bicubic_rows_fwd"] == tn["bicubic_rows_fwdgrad"] == 0 and cn == NO_LAUNCHES
     np.testing.assert_allclose(tst.costs_before[0], cst.costs_before[0], rtol=1e-5)
@@ -632,6 +671,10 @@ def test_level_through_the_eg_kernel_matches_the_eager_cpu_level(cuda_device):
     assert all(c1 <= c0 for c0, c1 in zip(tst.costs_before, tst.costs_after))
     np.testing.assert_allclose(tp.sdf.cpu().numpy(), cp.sdf.numpy(), rtol=5e-2, atol=1e-4)
     np.testing.assert_allclose(tp.poses.cpu().numpy(), cp.poses.numpy(), rtol=5e-2, atol=1e-4)
+    if case == "free":
+        assert not torch.equal(cp.intr, start.intr) and not torch.equal(cp.dist, start.dist)
+        np.testing.assert_allclose(tp.intr.cpu().numpy(), cp.intr.numpy(), rtol=5e-2, atol=1e-4)
+        np.testing.assert_allclose(tp.dist.cpu().numpy(), cp.dist.numpy(), rtol=5e-2, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,8 @@ def ranks(jax_side, tmp_path_factory):
             ("halo", dryrun.halo_task, (jax_side["bprob"][n],), {}),
             ("spmd", dryrun.spmd_step_task, (jax_side["bprob"][n],), {}),
             ("schur", dryrun.spmd_step_task, (jax_side["bprob"][n],), dict(schur=True, cg_coeff_dtype="float32")),
+            ("pose_schur", dryrun.spmd_step_task, (jax_side["bprob"][n],),
+             dict(schur="poses", cg_coeff_dtype="float32")),
             ("pipeline", dryrun.pipeline_task, (jax_side["level"],), dict(single=False)),
             ("stages", dryrun.stages_task, (jax_side["level"],), SVSH),
             ("fusion", dryrun.fusion_task, (jax_side["scene"],), {}),
@@ -226,12 +228,25 @@ def test_spmd_schur_matches_single_device_schur(ranks, n):
 
 
 @pytest.mark.parametrize("n", WORLD_SIZES)
+def test_spmd_pose_schur_matches_single_device(ranks, n):
+    """The sharded step with the poses eliminated and the camera's
+    intrinsics and distortion in the PCG (replicated leaves, counted once in
+    its inner products) against the port's single-device step of the same
+    kind, as the whole block's above."""
+    r = ranks[n][0]["pose_schur"]
+    sp, one = r["spmd"], r["single"]
+    np.testing.assert_allclose((sp["cost0"], sp["cost1"]), (one["cost0"], one["cost1"]), rtol=2e-2)
+    assert sp["tries"] == one["tries"]
+    np.testing.assert_allclose(sp["params"][3], one["params"][3], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n", WORLD_SIZES)
 def test_every_rank_holds_the_same_step(ranks, n):
     """Replicated results agree bit for bit across ranks, and every rank
     called the same collectives (a rank that skipped one would have hung)."""
     first = ranks[n][0]
     for other in ranks[n][1:]:
-        for key in ("spmd", "schur"):
+        for key in ("spmd", "schur", "pose_schur"):
             a, b = first[key]["spmd"], other[key]["spmd"]
             assert (a["cost0"], a["cost1"], a["mu"], a["tries"]) == (b["cost0"], b["cost1"], b["mu"], b["tries"])
             for pa, pb in zip(a["params"], b["params"]):

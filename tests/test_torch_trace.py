@@ -47,7 +47,7 @@ STATS_KEYS = [
 # the phases that are spans (the others are the prep threads' own seconds)
 PHASES = [k for k in STATS_KEYS if not k.startswith(("prefetch[", "upsample_prep["))]
 CHILDREN = {"join[": ("level_setup[", "sparsify[", "upsample["), "solve.assemble": ("solve[",),
-            "solve.lm_try": ("solve[",), "upsample.fields": ("upsample[",)}
+            "solve.lm_try": ("solve[",), "solve.globals": ("solve[",), "upsample.fields": ("upsample[",)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -122,7 +122,7 @@ def test_no_span_takes_a_mark_name_and_none_opens_off_the_main_thread(runs):
     assert len({s[3] for s in spans}) == 1
     known = re.compile(r"(pyramids|initial_recolor|(sparsify|topology|upsample)\[g\d+\]|(svsh|recolor)\[g\d+p\d+\]"
                        r"|(level_setup|solve)\[p\d+v\d+\]|join\[i3d-prep:.+\]|solve\.assemble|solve\.lm_try"
-                       r"|upsample\.fields)$")
+                       r"|solve\.globals|upsample\.fields)$")
     assert [s[0] for s in spans if not known.match(s[0])] == []
 
 
