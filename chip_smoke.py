@@ -63,8 +63,9 @@ tries, 12 CG steps):
    the poses moved from the true ones (printed, not checked); fails
    unless the schedule is (2,2) (2,1) (2,0) (1,0) (0,0), every level is
    dense, no accepted cost rises, every field is finite, the voxel size
-   ends at 1 mm, the E_g and depth-probe kernels launched, and the
-   refined SDF meets the analytic sphere's bar. It keeps a host copy of
+   ends at 1 mm, the E_g and depth-probe kernels launched, the upsample
+   kernel launched once a grid-level boundary, and the refined SDF meets
+   the analytic sphere's bar. It keeps a host copy of
    the inputs of each level's first E_g kernel call of each mode
    (linearization, value) and first K2 (depth probe) call inside
    `optimize_level` (off the card, so the levels' peak memory holds none of
@@ -74,7 +75,14 @@ tries, 12 CG steps):
    float64 evaluation, `eg_figures`), and prints per level M, the active
    share, the times, the bound and the share of the bound, and per kernel
    the sum over levels of launches x L2-flushed ms (the `levels` and
-   `main_path_ms` of the E_g and K2 records). The refinement runs
+   `main_path_ms` of the E_g and K2 records). It also keeps a host copy of
+   the parent grid each grid-level boundary hands `grid.algorithms.upsample`
+   and holds the upsample kernel there, bit for bit, against its plain
+   version on the card and the host path (numpy resampling and reorder),
+   timing the kernel (CUDA graph, from Python, L2-flushed) beside its byte
+   bound, the card's whole step (upload, launch, copy back) and the host's
+   (`check_upsample`; the record's figures are the finest boundary's, each
+   boundary's under `boundaries`). The refinement runs
    with the level pipeline on (the default): each level's layout, plan,
    stencil tables and statics, and each grid-level boundary's upsample and
    sparsify index tables, built on background threads;
@@ -494,6 +502,85 @@ def eg_line(rec: dict) -> str:
             f"({rec['bound_by']}, {rec['needed_bytes'] / 1e6:.1f} MB) pct_of_bound={rec['pct_of_bound']:.1f}")
 
 
+def check_upsample(parents: list) -> dict:
+    """The upsample kernel (`ops.upsample.upsample_fields`) on each parent
+    grid a grid-level boundary of the pipeline refinement handed
+    `grid.algorithms.upsample`: its child fields bit for bit those of its
+    plain version on the card (`upsample_fields_plain`) and of the host path
+    (`_upsample_fields` and the reorder into key order); the kernel timed in
+    a CUDA graph, from Python and L2-flushed beside its byte bound (each
+    byte the function needs read or written once: the order and channels
+    of every child, the corner row and channels of every parent); the
+    plain version's ms from Python; and the wall ms of the card's whole step
+    (upload, launch, copy back, as `upsample` takes it) and of the host
+    path's, medians of 5 after one untimed call. Returns the finest
+    boundary's record with every boundary's figures under `boundaries`."""
+    import numpy as np
+    import torch
+
+    from intrinsic3d_torch.grid import algorithms as alg
+    from intrinsic3d_torch.ops.roofline import bound, cold_ms
+    from intrinsic3d_torch.ops.upsample import FIELDS, upsample_fields, upsample_fields_plain
+
+    def wall_ms(fn, reps: int = 5) -> float:
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    def bits(a):
+        return np.ascontiguousarray(a).view(np.int32)
+
+    out = []
+    for g in parents:
+        idx, _, order = alg._upsample_skeleton(g)
+        names = FIELDS if g.is_sbr else FIELDS[:3]
+
+        def upload():
+            def put(a, dtype):
+                return torch.as_tensor(np.ascontiguousarray(a, dtype), device="cuda")
+
+            return {k: put(getattr(g, k), np.float32) for k in names}, put(idx, np.int32), put(order, np.int32)
+
+        def host():
+            return {k: v[order].astype(np.float32, copy=False) for k, v in alg._upsample_fields(g, idx=idx).items()}
+
+        args = upload()
+        got = {k: v.cpu().numpy() for k, v in upsample_fields(*args).items()}
+        plain = {k: v.cpu().numpy() for k, v in upsample_fields_plain(*args).items()}
+        want = host()
+        for k in names:
+            if not (np.array_equal(bits(got[k]), bits(plain[k])) and np.array_equal(bits(got[k]), bits(want[k]))):
+                fail(f"upsample_fields ({g.num_voxels} parents): {k} differs from its plain version "
+                     f"({np.array_equal(bits(got[k]), bits(plain[k]))} equal) or the host path "
+                     f"({np.array_equal(bits(got[k]), bits(want[k]))} equal)")
+        n, channels = g.num_voxels, 2 + 3 + 2 * g.is_sbr
+        nbytes = 8 * n * (4 + 4 * channels) + n * (4 * 8 + 4 * channels)
+        b_ms, b_by = bound(nbytes, 0)
+        kernel = lambda: upsample_fields(*args)  # noqa: E731
+        rec = dict(parents=n, children=8 * n, bitwise=True, bytes=nbytes, ms=graph_ms(kernel),
+                   call_ms=cuda_ms(kernel), cold_ms=cold_ms(kernel),
+                   plain_ms=cuda_ms(lambda: upsample_fields_plain(*args), 3), bound_ms=b_ms, bound_by=b_by,
+                   card_step_ms=wall_ms(lambda: {k: v.cpu() for k, v in upsample_fields(*upload()).items()}),
+                   host_ms=wall_ms(host))
+        rec["pct_of_bound"] = 100 * b_ms / rec["cold_ms"]
+        log(f"  upsample_fields: parents={n} children={8 * n} bitwise to the plain version and the host path; "
+            f"ms={rec['ms']:.4f} call_ms={rec['call_ms']:.4f} cold_ms={rec['cold_ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) pct_of_bound={rec['pct_of_bound']:.1f}; "
+            f"step on the card {rec['card_step_ms']:.2f} ms (upload, launch, copy back) against the host's "
+            f"{rec['host_ms']:.1f} ms")
+        out.append(rec)
+        del args
+    if not out:
+        fail("the pipeline refinement handed upsample no grid")
+    return dict(name="upsample_fields", route="cuda", source="intrinsic3d_torch/csrc/upsample_fields.cu",
+                replaces="none (host numpy)", **out[-1], library_ms=None, boundaries=out)
+
+
 def check_kernels(captured: dict) -> list:
     """Phase 1: each kernel against its plain version on the path's inputs
     (K1a and K1b on those the eager E_g forward of the path's first
@@ -819,10 +906,13 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     kept under `sampler_calls`,
     one dict a level, with the level's launches of every kernel (`launches`)
     and the copy's seconds (`capture_s`, inside `total_s`; the levels' peak
-    memory holds none of it)."""
+    memory holds none of it), and a copy of the parent grid each grid-level
+    boundary hands `upsample` under `boundaries` (its seconds in
+    `capture_s` too)."""
     import torch
 
     from intrinsic3d_torch import observations
+    from intrinsic3d_torch.grid import algorithms as alg
     from intrinsic3d_torch.ops import build, eg_rows
     from intrinsic3d_torch.refine import intrinsic3d
     from intrinsic3d_torch.synthetic import PIPELINE_CG_ITERS, PIPELINE_REFINEMENT
@@ -831,8 +921,8 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     for i, pose in enumerate(poses):
         sensor.set_pose(i, pose)
     sensor.color_cam = cam
-    levels, stats, inputs, sampler_calls = [], {}, [], []
-    real = intrinsic3d.optimize_level
+    levels, stats, inputs, sampler_calls, boundaries, boundary_s = [], {}, [], [], [], []
+    real, real_upsample = intrinsic3d.optimize_level, alg.upsample
 
     def keep_inputs(grid, *args, **kw):
         # `refine` writes the refined fields and colours back into the
@@ -859,8 +949,16 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
                 r()
             calls["launches"] = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
 
+    def keep_boundary(grid, *args, **kw):
+        t0 = time.perf_counter()
+        boundaries.append(grid.clone())
+        boundary_s.append(time.perf_counter() - t0)
+        return real_upsample(grid, *args, **kw)
+
     if capture_levels or capture_samplers:
         intrinsic3d.optimize_level = keep_inputs
+    if capture_samplers:
+        alg.upsample = keep_boundary
     try:
         torch.cuda.synchronize()
         build.reset_launches()
@@ -874,13 +972,14 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
         total_s = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
     finally:
-        intrinsic3d.optimize_level = real
+        intrinsic3d.optimize_level, alg.upsample = real, real_upsample
 
-    capture_s = sum(calls.get("capture_s", 0.0) for calls in sampler_calls)
+    capture_s = sum(calls.get("capture_s", 0.0) for calls in sampler_calls) + sum(boundary_s)
     log(f"phase {tag} (level pipeline {'on' if prefetch else 'off'}): {len(keyframes)} keyframes, fused "
         f"{fused.num_voxels} voxels -> refined "
         f"{refined.num_voxels} voxels at {refined.voxel_size * 1e3:.3f} mm; total {total_s:.3f}s"
-        + (f" ({capture_s:.3f}s of it the host copies of the sampler inputs)" if capture_samplers else ""))
+        + (f" ({capture_s:.3f}s of it the host copies of the sampler inputs and boundary grids)"
+           if capture_samplers else ""))
     records = []
     for g, p, nvox, st in levels:
         per_el = st.peak_bytes / st.elements
@@ -902,7 +1001,7 @@ def run_refinement(tag: str, sensor, keyframes, initial, fused, capture_levels: 
     (REPO / "chiprun_out" / f"{tag}_levels.json").write_text(json.dumps(
         dict(total_s=total_s, prefetch=prefetch, phases=stats, levels=records, launches=launches), indent=1))
     return dict(launches=launches, levels=records, total_s=total_s, refined=refined, inputs=inputs, initial=initial,
-                sampler_calls=sampler_calls, phases=stats, prefetch=prefetch)
+                sampler_calls=sampler_calls, boundaries=boundaries, phases=stats, prefetch=prefetch)
 
 
 def check_levels(run: dict) -> dict:
@@ -1120,8 +1219,8 @@ def pose_drift(poses, keyframes, initial) -> str:
 def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
     """The bars every pipeline refinement meets: the schedule, no accepted
     cost rising, finite fields and poses, 1 mm at the end, the E_g and
-    depth-probe kernels launched, and the refined SDF against the analytic
-    sphere."""
+    depth-probe kernels launched, the upsample kernel once a grid-level
+    boundary, and the refined SDF against the analytic sphere."""
     import numpy as np
 
     refined, records = run["refined"], run["levels"]
@@ -1142,6 +1241,10 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
     for name in BLOCK_PATH_KERNELS:
         if run["launches"][name] == 0:
             fail(f"kernel {name} was never launched in the pipeline refinement")
+    n_boundaries = len({g for g, _ in schedule}) - 1
+    if run["launches"]["upsample_fields"] != n_boundaries:
+        fail(f"the upsample kernel launched {run['launches']['upsample_fields']} times for {n_boundaries} grid-level "
+             f"boundaries")
     from intrinsic3d_torch.synthetic import refined_sdf_error
 
     med, p90, med0, n_shell = refined_sdf_error(refined, dataset["center"], dataset["radius"])
@@ -1159,7 +1262,8 @@ def refinement_phase(fusion: dict) -> dict:
     level plans dense, and holds the E_g kernel and K2 against their plain
     versions on each level's first inputs (`check_levels`). Returns the
     launches, the per-level records, the levels' recorded `optimize_level`
-    inputs (`inputs`) and the per-level sampler records (`sampler_levels`)."""
+    inputs (`inputs`), the per-level sampler records (`sampler_levels`) and
+    the upsample kernel's record (`upsample`, `check_upsample`)."""
     from intrinsic3d_torch.synthetic import PIPELINE_DATASET
 
     run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"],
@@ -1169,6 +1273,7 @@ def refinement_phase(fusion: dict) -> dict:
             fail(f"level {r['level']} was planned '{r['reason']}', not dense")
     check_refinement(run, fusion["sensor"], fusion["keyframes"], PIPELINE_DATASET)
     run["sampler_levels"] = check_levels(run)
+    run["upsample"] = check_upsample(run.pop("boundaries"))
     del run["sampler_calls"]
     return run
 
@@ -2029,6 +2134,12 @@ def main() -> int:
         r["launches_pipeline_refinement"] = refinement["launches"][r["name"]]
         if r["name"] in refinement["sampler_levels"]:
             r.update(refinement["sampler_levels"][r["name"]])
+    # the upsample kernel runs at the grid-level boundaries alone: its
+    # launches are the pipeline refinement's
+    rec = refinement.pop("upsample")
+    rec.update(launches=refinement["launches"]["upsample_fields"], status="ok",
+               launches_pipeline_refinement=refinement["launches"]["upsample_fields"])
+    records.append(rec)
     window_inputs, fusion_launches = fusion["window"], fusion["launches"]
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
 
@@ -2109,8 +2220,8 @@ def main() -> int:
         r["launches_flat"] = flat["launches"][r["name"]]
         if r["name"] in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows") and r["launches_flat"] == 0:
             fail(f"kernel {r['name']} was never launched on the flat path")
-    if len(records) != 7:
-        fail(f"{len(records)} kernel records, expected 7")
+    if len(records) != 8:
+        fail(f"{len(records)} kernel records, expected 8")
     kernels = {"kernels": records}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -390,7 +390,7 @@ class Intrinsic3D:
             if grid_lvl > 0:
                 with span(f"upsample[g{grid_lvl}]", phase=True):
                     self._write_back(grid, params)
-                    grid = alg.upsample(grid, prep=bprep)
+                    grid = alg.upsample(grid, prep=bprep, device=self.device)
                 if bprep is not None:
                     # the prep's own thread seconds, overlapped with the solve
                     record_phase(f"upsample_prep[g{grid_lvl}]", bprep.seconds)

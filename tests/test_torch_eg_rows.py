@@ -35,6 +35,18 @@ FIELD_NAMES = ("a_sdf", "a_alb", "a_pose", "a_intr", "a_dist")
 LENS = (0.08, -0.04, 0.0, 0.10, -0.06)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs test files in parallel worker processes: one intra-op
+    thread per process keeps torch from oversubscribing the cores (with
+    torch's default of one a core, this file's ~10 s took ~30 min of a
+    six-worker run on an 8-core machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sphere(dist=None):
     """The 5-frame sphere on the CPU (rendered through `dist`): its level
     and its dense assembly at the start point."""

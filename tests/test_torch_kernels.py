@@ -295,6 +295,71 @@ def test_correct_sdf_dense_rejects_a_plan_beyond_the_kernel(cuda_device, plan):
     assert build.LAUNCHES == NO_LAUNCHES
 
 
+def _shell_grid(radius: int, seed: int):
+    """A sphere shell of SBR voxels 4.4 voxels thick, 5% of them taken out
+    (absent corners) and 15% of weight 0: about 68 k voxels at radius 36
+    and 270 k at 72, the parents of the benchmark capture's two grid-level
+    boundaries (65 k and 261 k)."""
+    from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
+
+    rng = np.random.default_rng(seed)
+    r = np.arange(-radius - 3, radius + 4)
+    c = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    c = c[(np.abs(np.linalg.norm(c + 0.5, axis=1) - radius) < 2.2) & (rng.random(len(c)) > 0.05)]
+    g = VoxelGrid.from_coords(0.002, c.astype(np.int64), sbr=True)
+    n = g.num_voxels
+    g.sdf = (rng.normal(size=n) * 0.004).astype(np.float32)
+    g.weight = np.where(rng.random(n) < 0.85, rng.random(n) * 5, 0.0).astype(np.float32)
+    g.color = (rng.random((n, 3)) * 255).astype(np.float32)
+    g.albedo = rng.random(n).astype(np.float32)
+    g.sdf_refined = (rng.normal(size=n) * 0.004).astype(np.float32)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [36, 72], ids=["g2-g1", "g1-g0"])
+def test_upsample_kernel_is_bitwise_the_host_path(cuda_device, radius):
+    """`upsample` on the card (one kernel launch) and on the CPU (host
+    numpy) give the same child grid bit for bit, at both boundary sizes."""
+    from intrinsic3d_torch.grid import algorithms as alg
+
+    g = _shell_grid(radius, 31 + radius)
+    build.reset_launches()
+    card = alg.upsample(g, device=cuda_device)
+    assert build.LAUNCHES == dict(NO_LAUNCHES, upsample_fields=1)
+    host = alg.upsample(g, device="cpu")
+    assert build.LAUNCHES == dict(NO_LAUNCHES, upsample_fields=1)
+    np.testing.assert_array_equal(card.coords, host.coords)
+    for k in ("sdf", "weight", "color", "albedo", "sdf_refined"):
+        a, b = getattr(card, k), getattr(host, k)
+        assert a.dtype == b.dtype == np.float32 and a.flags.c_contiguous, k
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=k)
+    assert (host.weight == 0.0).any() and (host.weight > 0.0).any()
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_refuses_bad_inputs(cuda_device):
+    from intrinsic3d_torch.grid import algorithms as alg
+    from intrinsic3d_torch.ops.upsample import FIELDS, upsample_fields
+
+    g = _shell_grid(6, 3)
+    idx, _, order = alg._upsample_skeleton(g)
+    fields = {k: torch.as_tensor(getattr(g, k), device=cuda_device) for k in FIELDS}
+    idx, order = torch.as_tensor(idx, device=cuda_device), torch.as_tensor(order, device=cuda_device)
+    build.reset_launches()
+    strided = torch.empty((g.num_voxels, 4), device=cuda_device)[:, :3]
+    strided.copy_(fields["color"])
+    for bad, args in {"float64": (dict(fields, sdf=fields["sdf"].double()), idx, order),
+                      "int64 order": (fields, idx, order.long()),
+                      "not contiguous": (dict(fields, color=strided), idx, order),
+                      "on the CPU": ({k: v.cpu() for k, v in fields.items()}, idx.cpu(), order.cpu()),
+                      "mixed devices": (fields, idx.cpu(), order)}.items():
+        with pytest.raises(ValueError):
+            upsample_fields(*args)
+            pytest.fail(bad)
+    assert build.LAUNCHES == NO_LAUNCHES
+
+
 @pytest.mark.cuda
 def test_bicubic_sample_kernels_match_plain(cuda_device):
     """K4a (value) and K4b (g·∂x, g·∂y recomputed from the taps) against the
@@ -347,7 +412,8 @@ def test_fusion_on_the_card_matches_the_cpu_path(cuda_device, monkeypatch):
 def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
     """The JAX package's end-to-end scene (5 frames at 96×72, 2 grid and 2
     pyramid levels) refined from one fused grid on the card (the E_g kernel,
-    K2) and on the CPU (the eager E_g pass, K2's plain version) at converged
+    K2, one upsample kernel launch) and on the CPU (the eager E_g pass, K2's
+    plain version, the host upsample) at converged
     solver settings (float32
     coefficients, 100 CG steps, η = 1e-8): the same schedule and LM tries,
     per-level costs rtol 1e-3, the same final voxel set, refined sdf atol
@@ -372,6 +438,7 @@ def test_refinement_on_the_card_matches_the_cpu_path(cuda_device):
         runs[device] = (levels, engine.refine(fused), dict(build.LAUNCHES))
     (tl, tg, tn), (cl, cg, cn) = runs["cuda"], runs["cpu"]
     assert tn["eg_rows_lin"] > 0 and tn["eg_rows_value"] > 0 and tn["nearest_rows"] > 0
+    assert tn["upsample_fields"] == 1  # one grid-level boundary
     assert cn == NO_LAUNCHES
     assert [lv[:2] for lv in tl] == [lv[:2] for lv in cl] == [(1, 1), (1, 0), (0, 0)]
     for (_, _, a), (_, _, b) in zip(tl, cl):

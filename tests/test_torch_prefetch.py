@@ -32,6 +32,8 @@ from intrinsic3d_torch.config import FusionConfig, RefinementConfig
 from intrinsic3d_torch.grid import algorithms as alg
 from intrinsic3d_torch.grid.blocks import BlockLayout
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
+from intrinsic3d_torch.ops import build
+from intrinsic3d_torch.ops import upsample as up_ops
 from intrinsic3d_torch.prefetch import HostPrep
 from intrinsic3d_torch.refine import optimizer as opt
 from intrinsic3d_torch.refine.assembly import LevelTopology
@@ -102,8 +104,8 @@ def _boundary_grid(seed: int = 13) -> VoxelGrid:
 def test_upsample_prep_is_bitwise_the_serial_and_the_jax_upsample():
     g = _boundary_grid()
     prep = alg.UpsamplePrep(g, device="cpu")
-    up_pre = alg.upsample(g, prep=prep)
-    up_ref = alg.upsample(g)
+    up_pre = alg.upsample(g, prep=prep, device="cpu")
+    up_ref = alg.upsample(g, device="cpu")
     _assert_grids_equal(up_pre, up_ref)
     jg = _jgrid(g)
     jprep = j_alg.UpsamplePrep(jg, warm_program=False)
@@ -121,8 +123,8 @@ def test_prebuilt_sparsify_inputs_keep_the_same_voxels(dense):
     another grid object are refused, and so is a prep of another grid."""
     g = _boundary_grid()
     prep = alg.UpsamplePrep(g, dense=dense, device="cpu")
-    up_pre = alg.upsample(g, prep=prep)
-    up_ref = alg.upsample(g)
+    up_pre = alg.upsample(g, prep=prep, device="cpu")
+    up_ref = alg.upsample(g, device="cpu")
     shell = prep.shell_for(up_pre)
     assert shell is not None and shell.dense == dense and shell.grid is up_pre
     a = alg.clear_voxels_outside_thin_shell(up_pre, 0.008, device="cpu", shell=shell)
@@ -138,10 +140,62 @@ def test_prebuilt_sparsify_inputs_keep_the_same_voxels(dense):
     with pytest.raises(ValueError, match="route"):
         alg.clear_voxels_outside_thin_shell(up_pre, 0.008, dense=not dense, device="cpu", shell=shell)
     with pytest.raises(ValueError, match="another grid"):
-        alg.upsample(g.clone(), prep=prep)
+        alg.upsample(g.clone(), prep=prep, device="cpu")
     with pytest.raises(ValueError, match="already returned"):
-        alg.upsample(g, prep=prep)
+        alg.upsample(g, prep=prep, device="cpu")
     assert not prep.alive and not _prep_threads()
+
+
+def _upsample_grid(case: str) -> VoxelGrid:
+    """`_boundary_grid` (SBR) or its non-SBR copy; isolated voxels (no
+    parent has another corner); a solid cube with every weight > 0."""
+    if case in ("sbr", "non_sbr"):
+        g = _boundary_grid(17)
+        if case == "non_sbr":
+            g.albedo = g.sdf_refined = None
+        return g
+    rng = np.random.default_rng(19)
+    if case == "isolated":
+        coords = 3 * np.unique(rng.integers(-8, 8, size=(300, 3)), axis=0)
+    else:
+        coords = np.stack(np.meshgrid(*[np.arange(-3, 4)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    g = VoxelGrid.from_coords(0.008, coords.astype(np.int64), sbr=True)
+    n = g.num_voxels
+    g.sdf = rng.normal(size=n).astype(np.float32) * 0.01
+    g.weight = (rng.random(n) * 5 + 0.1).astype(np.float32)
+    g.color = rng.random((n, 3)).astype(np.float32)
+    g.albedo = rng.random(n).astype(np.float32)
+    g.sdf_refined = (rng.normal(size=n) * 0.01).astype(np.float32)
+    return g
+
+
+@pytest.mark.parametrize("case", ["sbr", "non_sbr", "isolated", "solid"])
+def test_upsample_kernel_plain_version_is_the_host_fields_in_key_order(case):
+    """`ops.upsample.upsample_fields_plain`, the kernel's arithmetic on CPU
+    tensors, is bit for bit the fields of `upsample(device="cpu")`, which
+    launches nothing; each case's inputs hold what it is named for, and
+    no parent count is a multiple of the kernel's 256-thread block."""
+    g = _upsample_grid(case)
+    idx, _, order = alg._upsample_skeleton(g)
+    build.reset_launches()
+    want = alg.upsample(g, device="cpu")
+    assert build.LAUNCHES == dict.fromkeys(build.LAUNCHES, 0)
+    names = up_ops.FIELDS if g.is_sbr else up_ops.FIELDS[:3]
+    got = up_ops.upsample_fields_plain({k: torch.as_tensor(getattr(g, k)) for k in names}, torch.as_tensor(idx),
+                                       torch.as_tensor(order))
+    assert set(got) == set(names)
+    for k in names:
+        np.testing.assert_array_equal(got[k].numpy().view(np.int32), getattr(want, k).view(np.int32), err_msg=k)
+    present = idx >= 0
+    valid = present & (g.weight[np.maximum(idx, 0)] > 0.0)
+    cnt = valid.sum(axis=1)
+    assert g.num_voxels % 256 != 0 and (~present).any()
+    if case in ("sbr", "non_sbr"):  # absent and zero-weight corners, parents on both sides of the 4-corner rule
+        assert (present & ~valid).any() and (cnt <= 4).any() and (cnt > 4).any()
+    elif case == "isolated":
+        assert (cnt <= 1).all() and (want.weight == 0.0).all()
+    else:
+        assert (cnt == 8).any()
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +406,7 @@ def test_a_prep_exception_reraises_at_the_join(level, monkeypatch):
     g = _boundary_grid()
     bprep = alg.UpsamplePrep(g, device="cpu")
     with pytest.raises(RuntimeError, match="boom in the prep"):
-        alg.upsample(g, prep=bprep)
+        alg.upsample(g, prep=bprep, device="cpu")
     assert not _prep_threads()
 
 
