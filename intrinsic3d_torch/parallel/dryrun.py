@@ -45,10 +45,10 @@ DEFAULT_TIMEOUT_S = 900.0
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(rank, task, world_size, backend, device, init_method, args, out_dir):
+def _rank_main(rank, task, world_size, backend, device, init_method, args, out_dir, threads):
     if torch.device(device).type == "cpu":
-        # ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+        # ranks share the launching process's threads
+        torch.set_num_threads(threads)
     mesh = init_mesh(world_size, rank, backend=backend, init_method=init_method, device=device)
     try:
         result = task(mesh, *args)
@@ -89,7 +89,8 @@ def launch(
         init_method = init_method or f"file://{tmp}/rendezvous"
         ctx = mp.start_processes(
             _rank_main,
-            args=(task, world_size, backend, device, init_method, tuple(args), tmp),
+            args=(task, world_size, backend, device, init_method, tuple(args), tmp,
+                  max(1, torch.get_num_threads() // world_size)),
             nprocs=world_size,
             join=False,
             start_method="spawn",

@@ -28,6 +28,8 @@ from benchmark.reference import camera, energy, svsh
 from benchmark.reference.common import thin_shell
 from benchmark.tests.conftest import REPO, TINY_LIMITS, make_root, tiny_config
 
+from torch_support import one_torch_thread  # noqa: F401
+
 SEED = 2**31 + 101
 CELL, HELD = "tinyglobals.factory-calib", "tinyheld.factory-calib"
 # the tiny cell's limits: `benchmark/tests/conftest.py`'s, the 9 camera
@@ -52,8 +54,6 @@ def _config(name: str, held: bool) -> dict:
 def root(tmp_path_factory):
     """The tiny benchmark with a factory-calibration cell on the tiny
     configuration, and one whose camera the port holds."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
     path = make_root(tmp_path_factory.mktemp("factory"))
     b = json.loads((path / "BENCHMARK.json").read_text())
     for cell, held in ((CELL, False), (HELD, True)):
@@ -65,8 +65,7 @@ def root(tmp_path_factory):
         if m["name"] in GLOBALS_METRICS:
             m["workloads"].append(CELL)
     (path / "BENCHMARK.json").write_text(json.dumps(b))
-    yield path
-    torch.set_num_threads(n)
+    return path
 
 
 def _run(root, workload, traced=False):

@@ -58,6 +58,8 @@ from intrinsic3d_torch.io.trajectory import load_poses
 from intrinsic3d_torch.io.tsdf_io import load_tsdf
 from intrinsic3d_torch.mesh.metrics import chamfer_distance
 
+from torch_support import one_torch_thread  # noqa: F401
+
 STAGES = (("keyframes", "keyframes.yml"), ("fusion", "fusion.yml"), ("intrinsic3d", "intrinsic3d.yml"))
 LEVELS = ("g1_p1", "g1_p0", "g0_p0")
 SPEC = dataclasses.replace(GoldenSceneSpec(), iterations=1)
@@ -73,27 +75,22 @@ def _run(main, root, cfg, **kw):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        base = tmp_path_factory.mktemp("apps")
-        src = str(base / "dataset")
-        export_sphere_dataset(src, SPEC)
-        roots = {name: str(base / name) for name in ("jax", "port", "cross")}
-        for r in roots.values():
-            shutil.copytree(src, r)
-        jax_apps = dict(keyframes=j_app_keyframes, fusion=j_app_fusion, intrinsic3d=j_app_intrinsic3d)
-        port_apps = dict(keyframes=app_keyframes, fusion=app_fusion, intrinsic3d=app_intrinsic3d)
-        for stage, cfg in STAGES:
-            _run(jax_apps[stage].main, roots["jax"], cfg)
-        for stage, cfg in STAGES:
-            _run(port_apps[stage].main, roots["port"], cfg, device="cpu")
-        os.makedirs(os.path.join(roots["cross"], "fusion"))
-        for rel in ("fusion/keyframes.txt", "fusion/volume.tsdf"):
-            shutil.copyfile(os.path.join(roots["jax"], rel), os.path.join(roots["cross"], rel))
-        _run(app_intrinsic3d.main, roots["cross"], "intrinsic3d.yml", device="cpu")
-    finally:
-        torch.set_num_threads(n)
+    base = tmp_path_factory.mktemp("apps")
+    src = str(base / "dataset")
+    export_sphere_dataset(src, SPEC)
+    roots = {name: str(base / name) for name in ("jax", "port", "cross")}
+    for r in roots.values():
+        shutil.copytree(src, r)
+    jax_apps = dict(keyframes=j_app_keyframes, fusion=j_app_fusion, intrinsic3d=j_app_intrinsic3d)
+    port_apps = dict(keyframes=app_keyframes, fusion=app_fusion, intrinsic3d=app_intrinsic3d)
+    for stage, cfg in STAGES:
+        _run(jax_apps[stage].main, roots["jax"], cfg)
+    for stage, cfg in STAGES:
+        _run(port_apps[stage].main, roots["port"], cfg, device="cpu")
+    os.makedirs(os.path.join(roots["cross"], "fusion"))
+    for rel in ("fusion/keyframes.txt", "fusion/volume.tsdf"):
+        shutil.copyfile(os.path.join(roots["jax"], rel), os.path.join(roots["cross"], rel))
+    _run(app_intrinsic3d.main, roots["cross"], "intrinsic3d.yml", device="cpu")
     return roots
 
 

@@ -27,6 +27,8 @@ from intrinsic3d_torch import timer as ttimer
 from intrinsic3d_torch.refine.intrinsic3d import Intrinsic3D
 from intrinsic3d_torch.synthetic import BENCH_PROBLEM
 
+from torch_support import one_torch_thread  # noqa: F401
+
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 BENCH_DETAIL_KEYS = {
     "active_eg_residuals", "num_voxels", "outer_iteration_s", "includes_device_assembly", "cg_iters",
@@ -43,16 +45,6 @@ STAGES = {"keyframes", "fusion", "refinement"}
 
 TINY_BENCH_PROBLEM = dict(BENCH_PROBLEM, voxel_size=0.02, image_size=(64, 48), num_frames=2)
 PIPELINE_ARGS = "--frames 6 --size 80x60 --voxel 0.02 --levels 1 --iters 1 --modes auto --repeats 1".split()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test files run in parallel worker processes: one intra-op thread per
-    process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(main, argv):

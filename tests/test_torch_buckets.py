@@ -60,40 +60,12 @@ from intrinsic3d_torch.refine import optimizer as opt
 from intrinsic3d_torch.refine.assembly import LevelTopology
 from intrinsic3d_torch.refine.device_assembly import build_level_static, device_assembly
 
+from torch_support import close, close_in_norm, one_torch_thread, to_numpy  # noqa: F401
+
 CFG = dict(num_observations=2, occlusion_distance=0.04, fix_poses=False, fix_intrinsics=False, fix_distortion=False)
 PROBLEM = dict(voxel_size=0.015, image_size=(64, 48), num_frames=3, num_observations=2, perturb_sdf=0.002,
                perturb_albedo=0.05)
 LAMBDAS = np.asarray([0.2, 20.0, 20.0, 0.1], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _np(a):
-    return np.asarray(a)
-
-
-def _f64(a):
-    return a.detach().to(torch.float64).numpy() if torch.is_tensor(a) else np.asarray(a, np.float64)
-
-
-def _close(got, want, rtol=1e-5):
-    got, want = _f64(got), _f64(want)
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * max(float(np.max(np.abs(want), initial=0.0)), 1e-30))
-
-
-def _close_in_norm(got, want, rtol=1e-4, elem=1e-3):
-    got, want = _f64(got), _f64(want)
-    scale = max(float(np.linalg.norm(want)), 1e-30)
-    assert np.linalg.norm(got - want) <= rtol * scale, np.linalg.norm(got - want) / scale
-    np.testing.assert_allclose(got, want, rtol=elem, atol=elem * float(np.max(np.abs(want), initial=0.0)))
 
 
 def _at_buckets(dense, bmap):
@@ -119,8 +91,8 @@ def scene():
                               albedo=jbf.table_to_dense(jl, prob.params.albedo))
     thres = prob.thres_shell
     fb = jbf.build_frame_buckets(
-        jl, _np(prob.params.poses), _np(prob.params.intr), 64, 48, prob.grid.voxel_size, margin_px=0.15 * 64,
-        depths=_np(prob.depths), occlusion=0.04, depth_slack=0.05 + thres,
+        jl, to_numpy(prob.params.poses), to_numpy(prob.params.intr), 64, 48, prob.grid.voxel_size, margin_px=0.15 * 64,
+        depths=to_numpy(prob.depths), occlusion=0.04, depth_slack=0.05 + thres,
     )
     scal = (1.0, prob.grid.voxel_size, prob.grid.truncation, thres, 0.04)
     kw = dict(num_obs=2, width=64, height=48)
@@ -133,7 +105,7 @@ def scene():
     tl = BlockLayout.build(tgrid)
     st = build_level_static(tl, tgrid, LevelTopology.build(tgrid), prob.voxel_sh, device="cpu")
     sp, ap = bf.layout_plans(tl, "cpu")
-    tparams = params_from_numpy(*(_np(a) for a in bp), device="cpu")
+    tparams = params_from_numpy(*(to_numpy(a) for a in bp), device="cpu")
     bmap = torch.as_tensor(fb.astype(np.int64))
     depths, images = torch.as_tensor(np.array(prob.depths)), torch.as_tensor(np.array(prob.images))
 
@@ -157,13 +129,13 @@ def test_bucket_transport_matches_jax():
     field = rng.normal(size=(9, nb * s)).astype(np.float32)
     vals = rng.normal(size=(10, k, nbc, s)).astype(np.float32)
     np.testing.assert_array_equal(bf._stencil_bucket(torch.as_tensor(sh), 10, tb).numpy(),
-                                  _np(jbf._stencil_bucket(jnp.asarray(sh), 10, jb)))
+                                  to_numpy(jbf._stencil_bucket(jnp.asarray(sh), 10, jb)))
     np.testing.assert_array_equal(bf._perslot_bucket(torch.as_tensor(field), tb, s).numpy(),
-                                  _np(jbf._perslot_bucket(jnp.asarray(field), jb, s)))
+                                  to_numpy(jbf._perslot_bucket(jnp.asarray(field), jb, s)))
     got = bf._unbucket(torch.as_tensor(vals), tb, nb, s)
     want = jbf._unbucket(jnp.asarray(vals), jb, nb, s)
     assert got.shape == (10, nb, s)
-    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), to_numpy(want), rtol=1e-6, atol=1e-6)
 
 
 def test_bucketed_device_assembly_matches(scene):
@@ -172,18 +144,18 @@ def test_bucketed_device_assembly_matches(scene):
     (asm, masks), (dasm, dmasks) = scene["bucketed"], scene["dense"]
     jasm, jm = scene["jasm"], scene["jm"]
     for got, want in zip(masks, jm):
-        np.testing.assert_array_equal(got.numpy(), _np(want))
+        np.testing.assert_array_equal(got.numpy(), to_numpy(want))
     for f in ("er_w", "es_w", "es_ref", "ea_w", "eg_sh", "eg_vpos", "images"):
-        np.testing.assert_array_equal(getattr(asm, f).numpy(), _np(getattr(jasm, f)))
+        np.testing.assert_array_equal(getattr(asm, f).numpy(), to_numpy(getattr(jasm, f)))
     np.testing.assert_array_equal(asm.bmap.numpy(), scene["fb"])
-    w_t, w_j = asm.eg_w.numpy(), _np(jasm.eg_w)
+    w_t, w_j = asm.eg_w.numpy(), to_numpy(jasm.eg_w)
     assert w_t.shape == w_j.shape == (3, scene["fb"].shape[1], 512)
     act = (w_t > 0) | (w_j > 0)
     flips = np.count_nonzero((w_t > 0) != (w_j > 0))
     assert act.sum() > 1000 and flips <= 0.01 * act.sum(), (flips, act.sum())
     both = (w_t > 0) & (w_j > 0)
     np.testing.assert_allclose(w_t[both], w_j[both], rtol=1e-5, atol=1e-7)
-    _close(asm.lam, jasm.lam, rtol=1e-4)
+    close(asm.lam, jasm.lam, rtol=1e-4)
 
     for got, want in zip(masks, dmasks):
         assert torch.equal(got, want)
@@ -199,7 +171,7 @@ def test_bucketed_residuals_and_linearization_match(scene):
     p, bmap = scene["tparams"], scene["bmap"]
     r_t = bf.block_all_residuals(p, asm)
     r_j = jax.jit(jbf.block_all_residuals)(scene["bp"], scene["jasm"])
-    _close(r_t, r_j, rtol=1e-4)
+    close(r_t, r_j, rtol=1e-4)
     r_d = bf.block_all_residuals(p, dasm)
     assert float(torch.sum(r_t * r_t)) == pytest.approx(float(torch.sum(r_d * r_d)), rel=1e-6)
 
@@ -207,13 +179,13 @@ def test_bucketed_residuals_and_linearization_match(scene):
     c_j, lin_j = scene["jlin"]
     assert float(c_t) == pytest.approx(float(c_j), rel=1e-4)
     for name in bf.BlockLin._fields:
-        _close_in_norm(getattr(lin_t, name), getattr(lin_j, name))
+        close_in_norm(getattr(lin_t, name), getattr(lin_j, name))
     c_d, lin_d = bf.linearize_block(p, dasm)
     assert float(c_t) == pytest.approx(float(c_d), rel=1e-6)
     for name in ("a_sdf", "a_alb", "a_pose", "a_intr", "a_dist", "r0_g"):
-        _close(getattr(lin_t, name), _at_buckets(getattr(lin_d, name), bmap))
+        close(getattr(lin_t, name), _at_buckets(getattr(lin_d, name), bmap), 1e-5)
     for name in ("r0_r", "r0_s", "r0_a", "sq_er", "sq_es", "sq_ea"):
-        _close(getattr(lin_t, name), getattr(lin_d, name))
+        close(getattr(lin_t, name), getattr(lin_d, name), 1e-5)
 
 
 def test_bucketed_products_match(scene):
@@ -233,14 +205,14 @@ def test_bucketed_products_match(scene):
     y_j = jbf.jv_block(lin_j, jasm, v_j)
     y_t = bf.jv_block(lin_t, asm, v_t)
     for got, want in zip(y_t, y_j):
-        _close(got, want)
+        close(got, want, 1e-5)
     cot = [rng.normal(size=np.shape(t)).astype(np.float32) for t in y_j]
     g_j = jbf.jtv_block(lin_j, jasm, tuple(jnp.asarray(c) for c in cot))
     g_t = bf.jtv_block(lin_t, asm, tuple(torch.as_tensor(c) for c in cot))
     for got, want in zip(g_t, g_j):
-        _close(got, want)
+        close(got, want, 1e-5)
     for got, want in zip(bf.diag_from_lin(lin_t, asm), jbf.diag_from_lin(lin_j, jasm)):
-        _close(got, want)
+        close(got, want, 1e-5)
     lhs = sum(float(torch.sum(y.double() * torch.as_tensor(c, dtype=torch.float64))) for y, c in zip(y_t, cot))
     rhs = sum(float(torch.sum(v.double() * g.double())) for v, g in zip(v_t, g_t))
     assert lhs == pytest.approx(rhs, rel=1e-5)
@@ -248,14 +220,14 @@ def test_bucketed_products_match(scene):
     _, lin_b = bf.linearize_block(scene["tparams"], asm)
     _, lin_d = bf.linearize_block(scene["tparams"], dasm)
     y_b, y_d = bf.jv_block(lin_b, asm, v_t), bf.jv_block(lin_d, dasm, v_t)
-    _close(y_b[0], _at_buckets(y_d[0], bmap))
+    close(y_b[0], _at_buckets(y_d[0], bmap), 1e-5)
     for got, want in zip(y_b[1:], y_d[1:]):
-        _close(got, want)
+        close(got, want, 1e-5)
     for got, want in zip(bf.jtv_block(lin_b, asm, y_b), bf.jtv_block(lin_d, dasm, y_d)):
-        _close(got, want)
+        close(got, want, 1e-5)
     for got, want in zip(bf.diag_from_lin(lin_b, asm), bf.diag_from_lin(lin_d, dasm)):
-        _close(got, want)
-    _close(bf.global_gram(lin_b), bf.global_gram(lin_d))
+        close(got, want, 1e-5)
+    close(bf.global_gram(lin_b), bf.global_gram(lin_d), 1e-5)
 
 
 @pytest.mark.parametrize("layout", ["dense", "bucketed"])
@@ -283,8 +255,8 @@ def _level_args(prob, cfg):
     t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
     g = prob.grid
     grid = grid_from_numpy(g.voxel_size, g.coords, g.sdf, g.weight, g.color, g.albedo, g.sdf_refined)
-    params = params_from_numpy(*(_np(a) for a in prob.params), device="cpu")
-    return (grid, None, params, cfg, None, t(prob.depths), t(prob.images), _np(prob.voxel_sh), prob.thres_shell, 0)
+    params = params_from_numpy(*(to_numpy(a) for a in prob.params), device="cpu")
+    return (grid, None, params, cfg, None, t(prob.depths), t(prob.images), to_numpy(prob.voxel_sh), prob.thres_shell, 0)
 
 
 def _solve_cfgs():
@@ -328,7 +300,7 @@ def test_optimize_level_matches_jax(scene, mode, monkeypatch):
     np.testing.assert_allclose(st_t.costs_before[0], st_j.costs_before[0], rtol=1e-4)
     np.testing.assert_allclose(st_t.costs_before, st_j.costs_before, rtol=2e-2)
     np.testing.assert_allclose(st_t.costs_after, st_j.costs_after, rtol=2e-2)
-    np.testing.assert_allclose(p_t.sdf.numpy(), _np(p_j.sdf), atol=2e-3)
+    np.testing.assert_allclose(p_t.sdf.numpy(), to_numpy(p_j.sdf), atol=2e-3)
     assert all(c1 <= c0 for c0, c1 in zip(st_t.costs_before, st_t.costs_after))
 
 
@@ -390,8 +362,8 @@ def test_planner_constants_never_trim_where_streaming_fits(scene):
     el = k * scene["fb"].shape[1] * s
 
     def plan(budget):
-        return opt.plan_eg_layout(layout, _np(prob.params.poses), _np(prob.params.intr), tcfg, 64, 48,
-                                  grid.voxel_size, prob.thres_shell, _np(prob.depths), budget=budget, device="cpu")
+        return opt.plan_eg_layout(layout, to_numpy(prob.params.poses), to_numpy(prob.params.intr), tcfg, 64, 48,
+                                  grid.voxel_size, prob.thres_shell, to_numpy(prob.depths), budget=budget, device="cpu")
 
     seen = set()
     for per_el in np.geomspace(50.0, 4000.0, 40).tolist() + [920.0, 950.0, 1000.0, 1100.0]:

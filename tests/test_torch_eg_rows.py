@@ -30,21 +30,11 @@ from intrinsic3d_torch.refine import blockform
 from intrinsic3d_torch.refine.optimizer import _bmap_on
 from intrinsic3d_torch.synthetic import DEFAULT_CENTER, build_sphere_problem
 
+from torch_support import one_torch_thread  # noqa: F401
+
 FIELD_NAMES = ("a_sdf", "a_alb", "a_pose", "a_intr", "a_dist")
 # the lens of tests/test_pose_refinement.py::test_distortion_recovery (k1 k2 k3 p1 p2)
 LENS = (0.08, -0.04, 0.0, 0.10, -0.06)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores (with
-    torch's default of one a core, this file's ~10 s took ~30 min of a
-    six-worker run on an 8-core machine)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _sphere(dist=None):
@@ -115,10 +105,26 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(2.0, e - 7)
 
 
+@pytest.fixture(scope="module")
+def eager():
+    """`eager(key, fn)`: `fn()`, the eager path's value, computed for the
+    first case that asks for `key` and kept for the others (the float32
+    linearization is both a float32 case's reference and a bfloat16 case's
+    exact fields; the cost and residuals do not depend on the dtype)."""
+    runs = {}
+
+    def get(key, fn):
+        if key not in runs:
+            runs[key] = fn()
+        return runs[key]
+
+    return get
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunks", [1, 3])
 @pytest.mark.parametrize("layout", ["dense", "bucketed", "lens"])
-def test_eg_pass_matches_the_eager_path(scene, layout, chunks, dtype):
+def test_eg_pass_matches_the_eager_path(scene, eager, layout, chunks, dtype):
     asm, params = scene[layout]
     if layout == "lens":
         # a nonzero lens, and intrinsics off the pinhole the frames were rendered through
@@ -133,7 +139,7 @@ def test_eg_pass_matches_the_eager_path(scene, layout, chunks, dtype):
 
     # the linearization: the kernel's chunks and field writes, the plain
     # element function, against the eager autograd pass
-    _, want = blockform.linearize_block_chunked(params, asm, chunks, cdt)
+    _, want = eager(("lin", layout, chunks, dtype), lambda: blockform.linearize_block_chunked(params, asm, chunks, cdt))
     sh = asm.sdf_plan.apply(params.sdf)
     sha = asm.alb_plan.apply(params.albedo)
     build.reset_launches()
@@ -141,7 +147,8 @@ def test_eg_pass_matches_the_eager_path(scene, layout, chunks, dtype):
     assert all(n == 0 for n in build.LAUNCHES.values())
     torch.testing.assert_close(r0, want.r0_g, rtol=1e-5, atol=0.0)
     assert int((r0 != 0).sum()) > 1000
-    _, exact = blockform.linearize_block_chunked(params, asm, chunks, torch.float32)
+    _, exact = eager(("lin", layout, chunks, "float32"),
+                     lambda: blockform.linearize_block_chunked(params, asm, chunks, torch.float32))
     for name, got in zip(FIELD_NAMES, coeffs):
         ref = getattr(exact, name).double()
         tol = 1e-5 * float(ref.abs().max())
@@ -156,13 +163,14 @@ def test_eg_pass_matches_the_eager_path(scene, layout, chunks, dtype):
     # the acceptance cost: the plain residuals and partial sums against the
     # eager forward, E_g alone (the other terms' λ̃ zeroed)
     asm_g = asm._replace(lam=asm.lam * torch.tensor([1.0, 0.0, 0.0, 0.0]))
-    want_cost = blockform.block_total_cost(params, asm_g, chunks)
+    want_cost = eager(("cost", layout, chunks), lambda: blockform.block_total_cost(params, asm_g, chunks))
     got_cost = 0.5 * blockform._eg_fused_cost(asm_g, sh, sha, params, chunks)
     torch.testing.assert_close(got_cost, want_cost, rtol=1e-5, atol=0.0)
     x = blockform._eg_inputs(asm, sh, sha, params)
     r_rows = torch.cat([eg_rows.eg_rows_value(x, asm.eg_w[lo:lo + n], lo)[0]
                         for lo, n in blockform._frame_chunks(k, chunks)])
-    r_eager = blockform.block_all_residuals(params, asm)[: asm.eg_w.numel()].view(k, kb, s)
+    r_eager = eager(("residuals", layout),
+                    lambda: blockform.block_all_residuals(params, asm)[: asm.eg_w.numel()].view(k, kb, s))
     torch.testing.assert_close(r_rows, r_eager, rtol=1e-5, atol=0.0)
 
 

@@ -51,32 +51,12 @@ from intrinsic3d_torch.refine.residuals import Params, all_residuals, total_cost
 from intrinsic3d_torch.refine.solver import gn_iteration, jtj_diag
 from intrinsic3d_torch.synthetic import build_sphere_problem
 
+from torch_support import close, one_torch_thread, to_numpy  # noqa: F401
+
 PROBLEM = dict(
     voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2, perturb_sdf=0.002, perturb_albedo=0.05,
 )
 GN = dict(lm_steps=3, cg_iters=6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test files run in parallel worker processes: one intra-op thread per
-    process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _np(a):
-    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
-
-
-def _close(got, want, rtol):
-    """allclose with an absolute floor of `rtol` × the largest magnitude of
-    `want`."""
-    got, want = _np(got).astype(np.float64), _np(want).astype(np.float64)
-    floor = rtol * max(float(np.max(np.abs(want))) if want.size else 0.0, 1e-30)
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=floor)
 
 
 @pytest.fixture(scope="module")
@@ -84,9 +64,9 @@ def probs():
     jprob = j_build_sphere_problem(**PROBLEM)
     tprob = build_sphere_problem(**PROBLEM, device="cpu")
     for a, b in zip(jprob.params, tprob.params):
-        np.testing.assert_array_equal(_np(b), np.asarray(a))
-    np.testing.assert_array_equal(_np(tprob.images), np.asarray(jprob.images))
-    np.testing.assert_array_equal(_np(tprob.depths), np.asarray(jprob.depths))
+        np.testing.assert_array_equal(to_numpy(b), np.asarray(a))
+    np.testing.assert_array_equal(to_numpy(tprob.images), np.asarray(jprob.images))
+    np.testing.assert_array_equal(to_numpy(tprob.depths), np.asarray(jprob.depths))
     return jprob, tprob
 
 
@@ -113,14 +93,14 @@ def carried(probs, assemblies):
 def _element_keys(asm, k):
     """(voxel, frame) key of every element: the stencil's first tap is the
     voxel itself."""
-    return _np(asm.eg_sdf10_idx)[:, 0].astype(np.int64) * k + _np(asm.eg_frame).astype(np.int64)
+    return to_numpy(asm.eg_sdf10_idx)[:, 0].astype(np.int64) * k + to_numpy(asm.eg_frame).astype(np.int64)
 
 
 def _matched_elements(jasm, tasm, k):
     """Indices into JAX's and the port's element rows of the elements both
     keep with positive weight, after checking that the kept sets differ on
     at most 1% of them."""
-    jw, tw = _np(jasm.eg_w), _np(tasm.eg_w)
+    jw, tw = to_numpy(jasm.eg_w), to_numpy(tasm.eg_w)
     jkeys, tkeys = _element_keys(jasm, k), _element_keys(tasm, k)
     jset, tset = set(jkeys[jw > 0].tolist()), set(tkeys[tw > 0].tolist())
     assert len(jset) > 100
@@ -145,7 +125,7 @@ def test_build_assembly_matches_jax(probs, assemblies, field):
     k = int(probs[0].params.poses.shape[0])
     if field.startswith("masks."):
         name = field.split(".")[1]
-        np.testing.assert_array_equal(_np(getattr(tmasks, name)), np.asarray(getattr(jmasks, name)))
+        np.testing.assert_array_equal(to_numpy(getattr(tmasks, name)), np.asarray(getattr(jmasks, name)))
         return
     if field == "order":
         # the port keeps JAX's np.flatnonzero element order (it drops only
@@ -156,13 +136,13 @@ def test_build_assembly_matches_jax(probs, assemblies, field):
         return
     if field in ELEMENT_FIELDS:
         ji, ti = _matched_elements(jasm, tasm, k)
-        got, want = _np(getattr(tasm, field))[ti], np.asarray(getattr(jasm, field))[ji]
+        got, want = to_numpy(getattr(tasm, field))[ti], np.asarray(getattr(jasm, field))[ji]
         if field in ("eg_sh", "eg_w"):
             np.testing.assert_allclose(got, want, rtol=1e-5)
         else:
             np.testing.assert_array_equal(got, want)
         return
-    got, want = _np(getattr(tasm, field)), np.asarray(getattr(jasm, field))
+    got, want = to_numpy(getattr(tasm, field)), np.asarray(getattr(jasm, field))
     if field in ("lam", "pyr_scale", "voxel_size", "er_w", "es_ref", "es_w", "ea_w", "images"):
         np.testing.assert_allclose(got, want, rtol=1e-5)
     else:
@@ -178,7 +158,7 @@ def test_flat_residuals_match_jax(probs, assemblies, carried, fn):
     got = tfn(tparams, tasm)
     if fn == "total_cost":
         assert float(got) > 0.0
-    _close(got, want, rtol=1e-5)
+    close(got, want, rtol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -191,7 +171,7 @@ def jtj_pair(probs, assemblies, carried):
 @pytest.mark.parametrize("leaf", Params._fields)
 def test_jtj_diag_matches_jax(jtj_pair, leaf):
     got, want = jtj_pair
-    _close(getattr(got, leaf), np.asarray(getattr(want, leaf)), rtol=1e-4)
+    close(getattr(got, leaf), np.asarray(getattr(want, leaf)), rtol=1e-4)
 
 
 @pytest.fixture(scope="module")
@@ -216,7 +196,8 @@ def test_flat_gn_iteration_matches_jax(gn_pair, quantity):
         np.testing.assert_allclose(float(tc1), float(jc1), rtol=1e-3)
         assert float(tc1) < float(tc0)
     else:
-        np.testing.assert_allclose(_np(getattr(tp, quantity)), np.asarray(getattr(jp, quantity)), rtol=5e-3, atol=5e-6)
+        np.testing.assert_allclose(to_numpy(getattr(tp, quantity)), np.asarray(getattr(jp, quantity)), rtol=5e-3,
+                                   atol=5e-6)
 
 
 @pytest.fixture(scope="module")
@@ -256,7 +237,7 @@ def test_to_block_problem_matches_jax(block_pairs, bucket, field):
                      getattr({"params": jparams, "masks": jmasks}[group], name))
     else:
         got, want = getattr(tbasm, field), getattr(jbasm, field)
-    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
 
 
 def test_to_block_problem_raises_outside_layout(probs, carried):
@@ -323,8 +304,8 @@ def test_flat_matches_own_block_path(probs, own_block, quantity):
     table = lambda f: blockform.dense_to_table(layout, f)  # noqa: E731
     if quantity == "roundtrip":
         back = blockform.params_from_block(layout, bparams)
-        np.testing.assert_array_equal(_np(back.sdf), _np(tprob.params.sdf))
-        np.testing.assert_array_equal(_np(back.albedo), _np(tprob.params.albedo))
+        np.testing.assert_array_equal(to_numpy(back.sdf), to_numpy(tprob.params.sdf))
+        np.testing.assert_array_equal(to_numpy(back.albedo), to_numpy(tprob.params.albedo))
     elif quantity == "cost_and_grad":
         c_t, g_t = _cost_grad(lambda p: total_cost(p, asm), tprob.params)
         c_b, g_b = _cost_grad(
@@ -334,16 +315,16 @@ def test_flat_matches_own_block_path(probs, own_block, quantity):
         np.testing.assert_allclose(float(c_b), float(c_t), rtol=1e-5)
         for got, want in ((table(g_b.sdf), g_t.sdf), (table(g_b.albedo), g_t.albedo), (g_b.poses, g_t.poses),
                           (g_b.dist, g_t.dist)):
-            np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=1e-6)
-        np.testing.assert_allclose(_np(g_b.intr), _np(g_t.intr), rtol=2e-4)
+            np.testing.assert_allclose(to_numpy(got), to_numpy(want), rtol=2e-4, atol=1e-6)
+        np.testing.assert_allclose(to_numpy(g_b.intr), to_numpy(g_t.intr), rtol=2e-4)
     elif quantity == "jacobi_diag":
         d_t = jtj_diag(tprob.params, asm)
         _, lin = blockform.linearize_block(bparams, basm)
         d_b = blockform.diag_from_lin(lin, basm)
         for got, want in ((table(d_b.sdf), d_t.sdf), (table(d_b.albedo), d_t.albedo), (d_b.poses, d_t.poses),
                           (d_b.dist, d_t.dist)):
-            np.testing.assert_allclose(_np(got), _np(want), rtol=5e-2, atol=2e-3)
-        np.testing.assert_allclose(_np(d_b.intr), _np(d_t.intr), rtol=5e-2)
+            np.testing.assert_allclose(to_numpy(got), to_numpy(want), rtol=5e-2, atol=2e-3)
+        np.testing.assert_allclose(to_numpy(d_b.intr), to_numpy(d_t.intr), rtol=5e-2)
         assert float(torch.sum(torch.abs(d_b.sdf[-1]))) == 0.0
     else:
         p_t, c0_t, c1_t, _, _ = gn_iteration(tprob.params, asm, masks, 1e-4, **GN, device="cpu")
@@ -353,8 +334,8 @@ def test_flat_matches_own_block_path(probs, own_block, quantity):
         np.testing.assert_allclose(float(c0_b), float(c0_t), rtol=1e-5)
         np.testing.assert_allclose(float(c1_b), float(c1_t), rtol=1e-3)
         assert float(c1_b) < float(c0_b)
-        np.testing.assert_allclose(_np(table(p_b.sdf)), _np(p_t.sdf), rtol=5e-3, atol=5e-6)
-        np.testing.assert_allclose(_np(p_b.poses), _np(p_t.poses), rtol=5e-3, atol=5e-6)
+        np.testing.assert_allclose(to_numpy(table(p_b.sdf)), to_numpy(p_t.sdf), rtol=5e-3, atol=5e-6)
+        np.testing.assert_allclose(to_numpy(p_b.poses), to_numpy(p_t.poses), rtol=5e-3, atol=5e-6)
 
 
 def test_flat_entry_points_default_to_the_card(probs):

@@ -23,6 +23,8 @@ from intrinsic3d_torch.grid import ops
 from intrinsic3d_torch.image import interp
 from intrinsic3d_torch.lighting import sh
 
+from torch_support import one_torch_thread  # noqa: F401
+
 CAM = dict(fx=525.0, fy=520.0, cx=319.5, cy=239.5, width=640, height=480)
 
 

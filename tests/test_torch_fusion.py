@@ -69,18 +69,10 @@ from intrinsic3d_torch.synthetic import (
     render_sphere_depth,
 )
 
+from torch_support import jcam, one_torch_thread, random_field  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 ORBIT = dict(num_frames=6, width=64, height=48, center=DEFAULT_CENTER, radius=0.12)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bench_pipeline():
@@ -96,10 +88,6 @@ def orbit():
         ORBIT["num_frames"], ORBIT["width"], ORBIT["height"], ORBIT["center"], ORBIT["radius"]
     )
     return j, build_orbit_dataset(**ORBIT)
-
-
-def _jcam(cam: Camera) -> JCamera:
-    return JCamera.create(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
 
 
 def _depth_stack(sensor) -> np.ndarray:
@@ -140,7 +128,7 @@ def test_blur_scores_and_keyframes_match_jax(orbit, tmp_path):
 
 def test_image_processing_matches_jax(orbit):
     _, t = orbit
-    cam, jcam = t.depth_cam, _jcam(t.depth_cam)
+    cam, jc = t.depth_cam, jcam(t.depth_cam)
     depths = _depth_stack(t)
     depths[2, 20:24, 30:40] += 0.7  # a discontinuity for the erosion
     for k in (1, 2):
@@ -150,13 +138,13 @@ def test_image_processing_matches_jax(orbit):
     for i in (0, 3):
         d = jnp.asarray(depths[i])
         np.testing.assert_allclose(
-            processing.compute_vertex_map(cam, td)[i].numpy(), np.asarray(j_proc.compute_vertex_map(jcam, d)), atol=1e-6
+            processing.compute_vertex_map(cam, td)[i].numpy(), np.asarray(j_proc.compute_vertex_map(jc, d)), atol=1e-6
         )
         np.testing.assert_allclose(
-            processing.compute_normals(cam, td)[i].numpy(), np.asarray(j_proc.compute_normals(jcam, d)), atol=1e-6
+            processing.compute_normals(cam, td)[i].numpy(), np.asarray(j_proc.compute_normals(jc, d)), atol=1e-6
         )
     big = Camera.create(cam.fx * 1.5, cam.fy * 1.5, 47.5, 35.5, 96, 72)
-    want = np.asarray(j_proc.resize_depth(jcam, jnp.asarray(depths[1]), _jcam(big)))
+    want = np.asarray(j_proc.resize_depth(jc, jnp.asarray(depths[1]), jcam(big)))
     got = processing.resize_depth(cam, td, big)
     assert got.shape == (6, 72, 96)
     np.testing.assert_allclose(got[1].numpy(), want, atol=1e-6)
@@ -202,7 +190,7 @@ def test_scene_voxel_bounds_match_jax(orbit):
     poses = [t.pose(i) for i in range(t.num_frames)]
     _, fcfg = pipeline_configs(radius=ORBIT["radius"])
     for clip in (None, fcfg.clip_bounds):
-        want = j_bounds(_jcam(t.depth_cam), poses, 0.1, 2.0, 0.004, clip)
+        want = j_bounds(jcam(t.depth_cam), poses, 0.1, 2.0, 0.004, clip)
         got = compute_scene_voxel_bounds(t.depth_cam, poses, 0.1, 2.0, 0.004, clip)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
@@ -212,13 +200,13 @@ def test_fusion_volume_matches_jax():
     """The sphere scene of `tests/test_grid.py::sphere_fusion` (64×48, four
     poses, voxel 1 cm): per-frame allocation and integration."""
     cam = Camera.create(60.0, 60.0, 31.5, 23.5, 64, 48)
-    jcam = _jcam(cam)
+    jc = jcam(cam)
     center, radius, vs = np.array([0.0, 0.0, 0.6]), 0.2, 0.01
     eyes = ([0.0, 0.0, 0.0], [0.55, 0.0, 0.55], [-0.5, 0.1, 0.5], [0.0, 0.5, 0.35])
     poses = [look_at_pose(e, center) for e in eyes]
     depths = [render_sphere_depth(cam, T, center, radius) for T in poses]
     vlo, vhi = compute_scene_voxel_bounds(cam, poses, 0.1, 2.0, vs)
-    jv = JFusionVolume(jcam, jcam, vs, vlo, vhi, 0.1, 2.0)
+    jv = JFusionVolume(jc, jc, vs, vlo, vhi, 0.1, 2.0)
     tv = FusionVolume(cam, cam, vs, vlo, vhi, 0.1, 2.0, device="cpu")
     for d, T in zip(depths, poses):
         jv.allocate(d, T)
@@ -227,7 +215,7 @@ def test_fusion_volume_matches_jax():
     np.testing.assert_array_equal(tg.coords, jg.coords)  # measured: 0 of 40,124 voxels differ
     rng = np.random.default_rng(5)
     for d, T in zip(depths, poses):
-        normals = np.asarray(j_proc.compute_normals(jcam, jnp.asarray(d)))
+        normals = np.asarray(j_proc.compute_normals(jc, jnp.asarray(d)))
         color = rng.uniform(0.0, 1.0, (48, 64, 3)).astype(np.float32)
         jv.integrate(d, normals, color, T)
         tv.integrate(d, normals, color, T)
@@ -238,17 +226,10 @@ def test_fusion_volume_matches_jax():
     np.testing.assert_allclose(tg.color, jg.color, atol=1e-3)
 
 
-def _random_field(shape, density=0.3, seed=0):
-    rng = np.random.default_rng(seed)
-    sdf = rng.normal(0.0, 0.05, shape).astype(np.float32)
-    w = (rng.uniform(size=shape) < density).astype(np.float32) * rng.uniform(1.0, 5.0, shape).astype(np.float32)
-    return sdf, w
-
-
 @pytest.mark.parametrize("shape,iters", [((20, 20, 20), 10), ((8, 8, 140), 4)], ids=["cube", "slab"])
 def test_correct_sdf_dense_plain_matches_pallas(shape, iters):
     """The cases of `tests/test_pallas_ops.py`; Z > 128 takes JAX's slab path."""
-    sdf, w = _random_field(shape, density=0.3 if iters == 10 else 0.5, seed=0 if iters == 10 else 1)
+    sdf, w = random_field(shape, density=0.3 if iters == 10 else 0.5, seed=0 if iters == 10 else 1)
     want_s, want_w = j_correct_sdf_dense(jnp.asarray(sdf), jnp.asarray(w), 0.01, tile=8, iters=iters, interpret=True)
     got_s, got_w = correct_sdf_dense_plain(torch.as_tensor(sdf), torch.as_tensor(w), 0.01, iters=iters)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-6)
@@ -298,15 +279,53 @@ def _run_schedule(sdf, weight, voxel_size, plan):
 DT_SHAPES = [((9, 5, 12), 0.4), ((3, 18, 20), 0.4), ((12, 10, 1), 0.5), ((17, 19, 61), 0.3), ((73, 63, 73), 0.05)]
 
 
+@pytest.fixture(scope="module")
+def sweeps_run():
+    """The fields each case's sweeps reached, kept for the cases of the same
+    field with more sweeps: the schedule's by (field, plan geometry, the
+    sweeps of the launches run), the plain version's by (field, sweeps). A
+    case continues from the longest run it extends. Sweeps chain (the plain
+    version is a loop of sweeps; each launch of the schedule reads the
+    previous one's output), so a case's fields are bit for bit those of a
+    run from the start."""
+    return dict(schedule={}, plain={})
+
+
+def _schedule_from(runs, field, sdf, weight, plan):
+    """`_run_schedule(sdf, weight, 0.01, plan)`, continued from the longest
+    run of the plan's first launches in `runs`."""
+    geom = (field, plan.tile_y, plan.cols, plan.seg)
+    n = max((len(p) for g, p in runs if g == geom and p == plan.sweeps[:len(p)]), default=0)
+    if n:
+        sdf, weight = runs[geom, plan.sweeps[:n]]
+    for i in range(n, len(plan.sweeps)):
+        sdf, weight = _run_schedule(sdf, weight, 0.01, plan._replace(sweeps=plan.sweeps[i:i + 1]))
+        runs[geom, plan.sweeps[:i + 1]] = sdf, weight
+    return sdf, weight
+
+
+def _plain_from(runs, field, sdf, weight, iters):
+    """`correct_sdf_dense_plain(sdf, weight, 0.01, iters)`, continued from the
+    most sweeps of the field in `runs`."""
+    done = max((n for f, n in runs if f == field and n <= iters), default=0)
+    if done:
+        sdf, weight = runs[field, done]
+    sdf, weight = correct_sdf_dense_plain(sdf, weight, 0.01, iters - done)
+    runs[field, iters] = sdf, weight
+    return sdf, weight
+
+
 @pytest.mark.parametrize("iters", [1, 3, 7, 10, 11])
 @pytest.mark.parametrize("shape,density", DT_SHAPES, ids=["x".join(map(str, s)) for s, _ in DT_SHAPES])
-def test_sweep_plan_schedule_matches_plain(shape, density, iters):
+def test_sweep_plan_schedule_matches_plain(sweeps_run, shape, density, iters):
     """The kernel's tile schedule (halo as deep as a launch's sweeps) gives
     the plain version's sdf and weight bit for bit."""
-    sdf, w = (torch.as_tensor(a) for a in _random_field(shape, density=density, seed=5))
+    seed = 5
+    sdf, w = (torch.as_tensor(a) for a in random_field(shape, density=density, seed=seed))
     plan = dt.sweep_plan(shape, iters)
-    got_s, got_w = _run_schedule(sdf, w, 0.01, plan)
-    want_s, want_w = correct_sdf_dense_plain(sdf, w, 0.01, iters)
+    field = (shape, density, seed)
+    got_s, got_w = _schedule_from(sweeps_run["schedule"], field, sdf, w, plan)
+    want_s, want_w = _plain_from(sweeps_run["plain"], field, sdf, w, iters)
     assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
     assert torch.equal(got_w, want_w)
     assert not torch.equal(got_s, sdf)  # the sweeps did work
@@ -314,7 +333,7 @@ def test_sweep_plan_schedule_matches_plain(shape, density, iters):
 
 def test_sweep_plan_schedule_matches_pallas():
     shape, iters = (17, 19, 61), 7
-    sdf, w = _random_field(shape, density=0.3, seed=6)
+    sdf, w = random_field(shape, density=0.3, seed=6)
     want_s, want_w = j_correct_sdf_dense(jnp.asarray(sdf), jnp.asarray(w), 0.01, tile=8, iters=iters, interpret=True)
     got_s, got_w = _run_schedule(torch.as_tensor(sdf), torch.as_tensor(w), 0.01, dt.sweep_plan(shape, iters))
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-6)
@@ -386,7 +405,7 @@ def test_kernel_candidate_rule_matches_plain(seed):
     gives the plain version's sdf and weight bit for bit, on fields with
     -0, +0, NaN and infinite values."""
     shape = (9, 11, 13)
-    sdf, w = (torch.as_tensor(a) for a in _random_field(shape, density=0.6, seed=seed))
+    sdf, w = (torch.as_tensor(a) for a in random_field(shape, density=0.6, seed=seed))
     rng = np.random.default_rng(seed)
     for value in (-0.0, 0.0, float("nan"), float("inf"), float("-inf")):
         sdf.view(-1)[torch.as_tensor(rng.integers(0, sdf.numel(), 6))] = value

@@ -46,6 +46,8 @@ from intrinsic3d_torch.io.ply import load_ply, save_ply
 from intrinsic3d_torch.io.trajectory import load_poses, save_poses
 from intrinsic3d_torch.io.tsdf_io import load_tsdf, save_tsdf
 
+from torch_support import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ("SensorConfig", "KeyframesConfig", "FusionConfig", "RefinementConfig")
 

@@ -20,6 +20,8 @@ import torch
 
 from intrinsic3d_torch.ops import bicubic, build, distance_transform, roofline
 
+from torch_support import cuda_device, one_torch_thread, random_field  # noqa: F401
+
 NO_LAUNCHES = dict.fromkeys(build.LAUNCHES, 0)
 
 
@@ -31,13 +33,6 @@ def _rows_problem(seed, k=8, h=240, w=320, m=8 * 40 * 512):
     y = rng.uniform(-2.0, h + 1.0, m).astype(np.float32)
     active = (rng.uniform(size=m) < 0.6).astype(np.float32)
     return images, fid, x, y, active
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels of intrinsic3d_torch/csrc run only on the card")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda
@@ -247,13 +242,6 @@ def test_bucketed_streamed_level_on_the_card_matches_the_cpu_path(cuda_device):
     np.testing.assert_allclose(tp.sdf.cpu().numpy(), cp.sdf.numpy(), atol=1e-4)
 
 
-def _random_field(shape, density, seed):
-    rng = np.random.default_rng(seed)
-    sdf = rng.normal(0.0, 0.05, shape).astype(np.float32)
-    w = (rng.uniform(size=shape) < density).astype(np.float32) * rng.uniform(1.0, 5.0, shape).astype(np.float32)
-    return sdf, w
-
-
 # shapes that stress the plan's edges: a dim smaller than the tile, a dim
 # smaller than the sweeps of a launch, Z = 1, dims that are no multiples of
 # the tile, and the fusion path's window shape at low density
@@ -264,7 +252,7 @@ DT_SHAPES = [((9, 5, 12), 0.4), ((3, 18, 20), 0.4), ((12, 10, 1), 0.5), ((40, 37
 @pytest.mark.parametrize("iters", [1, 3, 7, 10, 11])
 @pytest.mark.parametrize("shape,density", DT_SHAPES, ids=["x".join(map(str, s)) for s, _ in DT_SHAPES])
 def test_correct_sdf_dense_kernel_matches_plain(cuda_device, shape, density, iters):
-    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in _random_field(shape, density, 31))
+    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in random_field(shape, density, 31))
     want_s, want_w = distance_transform.correct_sdf_dense_plain(sdf, w, 0.004, iters)
     build.reset_launches()
     got_s, got_w = distance_transform.correct_sdf_dense(sdf, w, 0.004, iters)
@@ -288,7 +276,7 @@ def test_correct_sdf_dense_kernel_matches_plain(cuda_device, shape, density, ite
 def test_correct_sdf_dense_rejects_a_plan_beyond_the_kernel(cuda_device, plan):
     """The C entry holds the kernel's limits: it launches nothing for such a
     plan and the wrapper raises."""
-    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in _random_field((9, 5, 12), 0.4, 31))
+    sdf, w = (torch.as_tensor(a, device=cuda_device) for a in random_field((9, 5, 12), 0.4, 31))
     build.reset_launches()
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         distance_transform._run_plan(sdf, w, 0.004, plan)

@@ -48,6 +48,8 @@ from intrinsic3d_torch.lighting.svsh import SVSHResult
 from intrinsic3d_torch.mesh import extract, marching_cubes, metrics, util
 from intrinsic3d_torch.synthetic import sphere_sdf
 
+from torch_support import one_torch_thread  # noqa: F401
+
 MODES = ["", "normals", "lap", "lum", "lum_grad", "albedo", "shading_sv", "shading_sv_const", "chroma", "subvol",
          "subvol_interp"]
 EXACT_MODES = {"", "subvol", "subvol_interp"}

@@ -43,19 +43,7 @@ from intrinsic3d_torch.observations import observation_weight
 from intrinsic3d_torch.ops import bicubic
 from intrinsic3d_torch.refine import blockform
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _t(a, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(a), dtype=dtype)
+from torch_support import one_torch_thread, tensor  # noqa: F401
 
 
 def _rows_problem(seed=3, k=3, h=48, w=64, chunks_per_frame=2):
@@ -82,10 +70,11 @@ def test_bicubic_rows_plain_matches_pallas():
 
     val_j, vjp = jax.vjp(lambda xx, yy: jbic.bicubic_sample_rows(args[0], args[1], xx, yy, args[4]), args[2], args[3])
     ddx_j, ddy_j = vjp(jnp.ones_like(val_j))
-    val, ddx, ddy = bicubic.bicubic_rows_plain(_t(images), _t(fid, torch.int32), _t(x), _t(y), _t(active))
+    val, ddx, ddy = bicubic.bicubic_rows_plain(tensor(images), tensor(fid, torch.int32), tensor(x), tensor(y),
+                                               tensor(active))
     exact = bicubic.bicubic_rows_plain(
-        torch.as_tensor(images, dtype=torch.float64), _t(fid, torch.int32),
-        torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(y, dtype=torch.float64), _t(active),
+        torch.as_tensor(images, dtype=torch.float64), tensor(fid, torch.int32),
+        torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(y, dtype=torch.float64), tensor(active),
     )
     for got, want, ref in zip((val, ddx, ddy), (val_j, ddx_j, ddy_j), exact):
         # the port's float32 taps against the float64 evaluation
@@ -102,12 +91,13 @@ def test_bicubic_rows_plain_matches_pallas():
 
 def test_bicubic_rows_autograd_is_the_derivative_output():
     images, fid, x, y, active = _rows_problem(seed=5)
-    xt = _t(x).requires_grad_(True)
-    yt = _t(y).requires_grad_(True)
-    out = bicubic.bicubic_rows(_t(images), _t(fid, torch.int32), xt, yt, _t(active))
+    xt = tensor(x).requires_grad_(True)
+    yt = tensor(y).requires_grad_(True)
+    out = bicubic.bicubic_rows(tensor(images), tensor(fid, torch.int32), xt, yt, tensor(active))
     g = torch.as_tensor(np.random.default_rng(6).normal(size=x.shape).astype(np.float32))
     gx, gy = torch.autograd.grad(out, (xt, yt), grad_outputs=g)
-    val, ddx, ddy = bicubic.bicubic_rows_plain(_t(images), _t(fid, torch.int32), _t(x), _t(y), _t(active))
+    val, ddx, ddy = bicubic.bicubic_rows_plain(tensor(images), tensor(fid, torch.int32), tensor(x), tensor(y),
+                                               tensor(active))
     torch.testing.assert_close(out.detach(), val, rtol=0, atol=0)
     torch.testing.assert_close(gx, g * ddx, rtol=0, atol=0)
     torch.testing.assert_close(gy, g * ddy, rtol=0, atol=0)
@@ -123,7 +113,7 @@ def test_bicubic_rows_plain_matches_central_difference():
     xt = torch.as_tensor(np.clip(x, 1.5, w - 3.0), dtype=torch.float64)
     yt = torch.as_tensor(np.clip(y, 1.5, h - 3.0), dtype=torch.float64)
     act = torch.ones_like(xt)
-    f = _t(fid, torch.int32)
+    f = tensor(fid, torch.int32)
     eps = 1e-6
     _, ddx, ddy = bicubic.bicubic_rows_plain(images64, f, xt, yt, act)
     fx = (bicubic.bicubic_rows_plain(images64, f, xt + eps, yt, act)[0]
@@ -149,8 +139,8 @@ def test_nearest_rows_plain_matches_pallas():
     xi = rng.integers(0, w, m).astype(np.int32)
     active = (rng.uniform(size=m) < 0.5).astype(np.float32)
     want = jbic.nearest_sample_rows(*(jnp.asarray(a) for a in (depths, fid, yi, xi, active)))
-    ints = [_t(a, torch.int32) for a in (fid, yi, xi)]
-    got = bicubic.nearest_rows(_t(depths), *ints, _t(active))
+    ints = [tensor(a, torch.int32) for a in (fid, yi, xi)]
+    got = bicubic.nearest_rows(tensor(depths), *ints, tensor(active))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=0)
     exact = depths[fid, yi, xi] * (active > 0)
     np.testing.assert_array_equal(got.numpy(), exact)
@@ -194,7 +184,7 @@ def test_bicubic_value_plain_matches_pallas_on_ragged_lengths(m, pattern):
     images, fid, x, y, active = _ragged_problem(m, pattern, seed=m)
     padded = _pad_chunks(m, fid, x, y, active)
     want = np.asarray(jbic.bicubic_sample_rows(jnp.asarray(images), *(jnp.asarray(a) for a in padded)))[:m]
-    got = bicubic.bicubic_rows(_t(images), _t(fid, torch.int32), _t(x), _t(y), _t(active))
+    got = bicubic.bicubic_rows(tensor(images), tensor(fid, torch.int32), tensor(x), tensor(y), tensor(active))
     assert got.shape == (m,)
     # the Pallas sampler's bf16 hi/lo split dots (as in
     # test_bicubic_rows_plain_matches_pallas), on images up to 5
@@ -210,7 +200,7 @@ def test_bicubic_fwdgrad_plain_matches_pallas_on_ragged_lengths(m, pattern):
     jf, jx, jy, ja = (jnp.asarray(a) for a in _pad_chunks(m, fid, x, y, active))
     val_j, vjp = jax.vjp(lambda xx, yy: jbic.bicubic_sample_rows(jnp.asarray(images), jf, xx, yy, ja), jx, jy)
     want = (val_j, *vjp(jnp.ones_like(val_j)))
-    got = bicubic.bicubic_rows_plain(_t(images), _t(fid, torch.int32), _t(x), _t(y), _t(active))
+    got = bicubic.bicubic_rows_plain(tensor(images), tensor(fid, torch.int32), tensor(x), tensor(y), tensor(active))
     # the value's tolerance (test_bicubic_value_plain_matches_pallas_on_ragged_lengths:
     # the Pallas bf16 hi/lo split dots on images up to 5); the derivatives'
     # absolute error scales with their weights' sum Σ|dw_x|·Σ|w_y| <= 3 x
@@ -228,7 +218,7 @@ def test_nearest_rows_plain_matches_pallas_on_ragged_lengths(m, pattern):
     yi = np.clip(np.floor(y + 0.5), 0, h - 1).astype(np.int32)
     xi = np.clip(np.floor(x + 0.5), 0, w - 1).astype(np.int32)
     want = jbic.nearest_sample_rows(*(jnp.asarray(a) for a in (images, fid, yi, xi, active)))
-    got = bicubic.nearest_rows(_t(images), *(_t(a, torch.int32) for a in (fid, yi, xi)), _t(active))
+    got = bicubic.nearest_rows(tensor(images), *(tensor(a, torch.int32) for a in (fid, yi, xi)), tensor(active))
     assert got.shape == (m,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=0)
     np.testing.assert_array_equal(got.numpy(), images[fid, yi, xi] * (active > 0))
@@ -248,12 +238,12 @@ def test_rotate_and_transform_points(scale):
     rng = np.random.default_rng(21)
     aa = (rng.normal(size=(64, 3)) * scale).astype(np.float32)
     pts = rng.normal(size=(64, 3)).astype(np.float32)
-    t = rng.normal(size=(64, 3)).astype(np.float32)
+    trans = rng.normal(size=(64, 3)).astype(np.float32)
     want = jax.vmap(jmath.rotate_angle_axis)(jnp.asarray(aa), jnp.asarray(pts))
-    _close(mathutil.rotate_angle_axis(_t(aa), _t(pts)), want)
-    pose = np.concatenate([aa, t], axis=-1)
+    _close(mathutil.rotate_angle_axis(tensor(aa), tensor(pts)), want)
+    pose = np.concatenate([aa, trans], axis=-1)
     want_t = jax.vmap(jmath.transform_points)(jnp.asarray(pose), jnp.asarray(pts))
-    _close(mathutil.transform_points(_t(pose), _t(pts)), want_t)
+    _close(mathutil.transform_points(tensor(pose), tensor(pts)), want_t)
 
 
 def test_pose_conversions_and_weights():
@@ -265,12 +255,12 @@ def test_pose_conversions_and_weights():
         np.testing.assert_array_equal(mathutil.pose_matrix_to_vec(m_t), jmath.pose_matrix_to_vec(m_j))
         np.testing.assert_array_equal(mathutil.invert_pose(m_t), jmath.invert_pose(m_j))
     x = rng.uniform(-0.1, 1.0, 100).astype(np.float32)
-    _close(mathutil.robust_kernel(_t(x)), jmath.robust_kernel(jnp.asarray(x)))
-    _close(mathutil.sdf_to_weight(_t(x), 0.05), jmath.sdf_to_weight(jnp.asarray(x), 0.05))
+    _close(mathutil.robust_kernel(tensor(x)), jmath.robust_kernel(jnp.asarray(x)))
+    _close(mathutil.sdf_to_weight(tensor(x), 0.05), jmath.sdf_to_weight(jnp.asarray(x), 0.05))
     rgb = rng.uniform(0, 255, (10, 3)).astype(np.float32)
     from intrinsic3d_tpu.color import intensity as j_intensity
 
-    _close(color.intensity(_t(rgb)), j_intensity(jnp.asarray(rgb)))
+    _close(color.intensity(tensor(rgb)), j_intensity(jnp.asarray(rgb)))
 
 
 def test_camera_distort_and_project():
@@ -280,13 +270,13 @@ def test_camera_distort_and_project():
         [rng.uniform(-0.4, 0.4, (200, 2)), rng.uniform(-0.1, 2.0, (200, 1))], axis=-1
     ).astype(np.float32)
     jc = jcam.Camera.create(70.4, 70.4, 31.5, 23.5, 64, 48, dist=dist)
-    tc = camera.Camera(*(torch.tensor(v) for v in (70.4, 70.4, 31.5, 23.5)), 64, 48, _t(dist))
+    tc = camera.Camera(*(torch.tensor(v) for v in (70.4, 70.4, 31.5, 23.5)), 64, 48, tensor(dist))
     uv_j, ok_j = jcam.project(jc, jnp.asarray(pts))
-    uv_t, ok_t = camera.project(tc, _t(pts))
+    uv_t, ok_t = camera.project(tc, tensor(pts))
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
     _close(uv_t, uv_j, rtol=1e-5, atol=1e-4)
     xd_j = jcam.distort(jnp.asarray(dist), jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]))
-    xd_t = camera.distort(_t(dist), _t(pts[:, 0]), _t(pts[:, 1]))
+    xd_t = camera.distort(tensor(dist), tensor(pts[:, 0]), tensor(pts[:, 1]))
     for a, b in zip(xd_t, xd_j):
         _close(a, b)
 
@@ -294,19 +284,20 @@ def test_camera_distort_and_project():
 def test_sh_normal_and_observation_weight():
     rng = np.random.default_rng(24)
     n = rng.normal(size=(300, 3)).astype(np.float32)
-    _close(sh.sh_basis(_t(n)), jsh.sh_basis(jnp.asarray(n)))
+    _close(sh.sh_basis(tensor(n)), jsh.sh_basis(jnp.asarray(n)))
     sdf4 = rng.normal(0, 0.01, (300, 4)).astype(np.float32)
     sdf4[:5] = 0.25  # vanishing forward difference: the +1e-24 guard
-    _close(gops.compute_normal_from_sdf4(_t(sdf4)), jgops.compute_normal_from_sdf4(jnp.asarray(sdf4)))
+    _close(gops.compute_normal_from_sdf4(tensor(sdf4)), jgops.compute_normal_from_sdf4(jnp.asarray(sdf4)))
     # the reverse pass stays finite where the difference vanishes
-    s = _t(sdf4).requires_grad_(True)
+    s = tensor(sdf4).requires_grad_(True)
     (g,) = torch.autograd.grad(gops.compute_normal_from_sdf4(s).sum(), s)
     assert torch.isfinite(g).all()
     pt = rng.normal(size=(300, 3)).astype(np.float32)
     nc = n / np.linalg.norm(n, axis=-1, keepdims=True)
     nc[:3] = 0.0
     d = rng.uniform(0.0, 6.0, 300).astype(np.float32)
-    _close(observation_weight(_t(pt), _t(nc), _t(d)), j_observation_weight(jnp.asarray(pt), jnp.asarray(nc), jnp.asarray(d)))
+    _close(observation_weight(tensor(pt), tensor(nc), tensor(d)),
+           j_observation_weight(jnp.asarray(pt), jnp.asarray(nc), jnp.asarray(d)))
 
 
 # ---------------------------------------------------------------------------
@@ -331,11 +322,11 @@ def test_shift_plans_match_jax_and_are_adjoint(sphere_grid, block):
     rng = np.random.default_rng(25)
     for jplan, tplan in zip(jbf.layout_plans(jl), blockform.layout_plans(tl, "cpu")):
         nb, s = tl.num_blocks, block**3
-        field = pad_flat(_t(rng.normal(size=(nb, s)).astype(np.float32)))
+        field = pad_flat(tensor(rng.normal(size=(nb, s)).astype(np.float32)))
         got = tplan.apply(field)
         np.testing.assert_array_equal(got.numpy(), np.asarray(jplan.apply(jnp.asarray(field.numpy()))))
         cot = rng.normal(size=got.shape).astype(np.float32)
-        back = tplan.apply_transpose(_t(cot))
+        back = tplan.apply_transpose(tensor(cot))
         want = np.asarray(jplan.apply_transpose(jnp.asarray(cot)))
         # real rows: exact up to summation order; the pad row is the sink of
         # absent neighbours (never read downstream)

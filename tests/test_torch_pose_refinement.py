@@ -37,7 +37,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from intrinsic3d_tpu.config import RefinementConfig as JRefinementConfig
@@ -54,20 +53,12 @@ from intrinsic3d_torch.refine import blockform
 from intrinsic3d_torch.refine.solver import gn_iteration
 from intrinsic3d_torch.synthetic import build_sphere_problem
 
+from torch_support import one_torch_thread  # noqa: F401
+
 BASE = dict(
     num_observations=3, occlusion_distance=0.03, lambda_r0=20.0, lambda_r1=20.0, lambda_s0=20.0,
     lambda_s1=20.0, lambda_a=0.1,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _problems(fix, **kw):
@@ -114,8 +105,11 @@ def _run_jax(prob, start, iters, lm=8, cg=12, dist_mask=None, mu=1e-4):
 def _run_jax_block(prob, start, iters, lm=8, cg=12, dist_mask=None, mu=1e-4):
     """`_run_port` in the JAX package: its device assembly and block-dense
     `gn_iteration`, jitted as one step (the interpreted Pallas samplers run
-    several times faster compiled than dispatched eagerly). Returns the
-    block-dense parameters, the (before, after) costs and the last μ."""
+    several times faster compiled than dispatched eagerly) that takes the
+    level's arrays as arguments, as the package's own outer step does (as
+    constants of the program XLA folds them, and the compile takes ~1.7x as
+    long). Returns the block-dense parameters, the (before, after) costs and
+    the last μ."""
     layout = JBlockLayout.build(prob.grid)
     static = j_build_level_static(layout, prob.grid, prob.topo, prob.voxel_sh)
     sdf_plan, alb_plan = jbf.layout_plans(layout)
@@ -131,18 +125,19 @@ def _run_jax_block(prob, start, iters, lm=8, cg=12, dist_mask=None, mu=1e-4):
               use_albedo=cfg.lambda_a >= 0.0)
 
     @jax.jit
-    def step(bp, mu):
-        asm, masks = j_device_assembly(static, sdf_plan, alb_plan, bp, prob.depths, prob.images, *scalars, lambdas,
-                                       **kw)
+    def step(static, sdf_plan, alb_plan, bp, depths, images, scalars, lambdas, dist_mask, mu):
+        asm, masks = j_device_assembly(static, sdf_plan, alb_plan, bp, depths, images, *scalars, lambdas, **kw)
         masks = masks._replace(sdf=jnp.zeros_like(masks.sdf), albedo=jnp.zeros_like(masks.albedo))
         if dist_mask is not None:
-            masks = masks._replace(dist=jnp.asarray(dist_mask))
+            masks = masks._replace(dist=dist_mask)
         return j_gn_iteration(bp, asm, masks, mu, lm, cg)
 
+    dist_mask = None if dist_mask is None else jnp.asarray(dist_mask)
     mu = jnp.float32(mu)
     costs = []
     for _ in range(iters):
-        bp, c0, c1, mu, _ = step(bp, mu)
+        bp, c0, c1, mu, _ = step(static, sdf_plan, alb_plan, bp, prob.depths, prob.images, scalars, lambdas,
+                                 dist_mask, mu)
         costs.append((float(c0), float(c1)))
     return bp, costs, mu
 

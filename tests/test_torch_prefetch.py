@@ -22,7 +22,6 @@ import torch
 from intrinsic3d_tpu.config import RefinementConfig as JRefinementConfig
 from intrinsic3d_tpu.grid import algorithms as j_alg
 from intrinsic3d_tpu.grid.blocks import BlockLayout as JBlockLayout
-from intrinsic3d_tpu.grid.voxel_grid import VoxelGrid as JVoxelGrid
 from intrinsic3d_tpu.refine.assembly import LevelTopology as JLevelTopology
 from intrinsic3d_tpu.refine.device_assembly import build_level_static as j_build_level_static
 from intrinsic3d_tpu.refine.optimizer import plan_eg_layout as j_plan_eg_layout
@@ -47,33 +46,16 @@ from intrinsic3d_torch.synthetic import (
     small_refinement_sensor,
 )
 
+from torch_support import jgrid, one_torch_thread  # noqa: F401
+
 FIELDS = ("coords", "keys", "sdf", "weight", "color", "albedo", "sdf_refined")
 # a level with frame buckets (forced), planned with room to spare: the JAX
 # planner's dense constant then decides nothing, so both plans agree
 BUDGET = 1e12
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test files run in parallel worker processes: one intra-op thread per
-    process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _prep_threads():
     return [t for t in threading.enumerate() if t.name.startswith(HostPrep.THREAD_PREFIX) and t.is_alive()]
-
-
-def _jgrid(g: VoxelGrid) -> JVoxelGrid:
-    c = lambda a: None if a is None else np.array(a)  # noqa: E731
-    return JVoxelGrid(
-        voxel_size=g.voxel_size, coords=c(g.coords), keys=c(g.keys), sdf=c(g.sdf), weight=c(g.weight),
-        color=c(g.color), albedo=c(g.albedo), sdf_refined=c(g.sdf_refined), depth_min=g.depth_min,
-        depth_max=g.depth_max, integration_weight_sample=g.integration_weight_sample,
-    )
 
 
 def _assert_grids_equal(a, b):
@@ -107,7 +89,7 @@ def test_upsample_prep_is_bitwise_the_serial_and_the_jax_upsample():
     up_pre = alg.upsample(g, prep=prep, device="cpu")
     up_ref = alg.upsample(g, device="cpu")
     _assert_grids_equal(up_pre, up_ref)
-    jg = _jgrid(g)
+    jg = jgrid(g)
     jprep = j_alg.UpsamplePrep(jg, warm_program=False)
     jup = j_alg.upsample(jg, prep=jprep)
     _assert_grids_equal(up_pre, jup)
@@ -130,7 +112,7 @@ def test_prebuilt_sparsify_inputs_keep_the_same_voxels(dense):
     a = alg.clear_voxels_outside_thin_shell(up_pre, 0.008, device="cpu", shell=shell)
     b = alg.clear_voxels_outside_thin_shell(up_ref, 0.008, dense=dense, device="cpu")
     _assert_grids_equal(a, b)
-    jb = j_alg.clear_voxels_outside_thin_shell(_jgrid(up_ref), 0.008, use_device=False)
+    jb = j_alg.clear_voxels_outside_thin_shell(jgrid(up_ref), 0.008, use_device=False)
     _assert_grids_equal(a, jb)
     assert 0 < a.num_voxels < up_pre.num_voxels
 
@@ -266,11 +248,11 @@ def test_level_prep_is_bitwise_the_serial_and_the_jax_host_build(level, monkeypa
         np.testing.assert_array_equal(got, want, err_msg=name)
 
     # against the JAX package's host build of the same level
-    jgrid = _jgrid(grid)
-    jlayout = JBlockLayout.build(jgrid, halo_table=False)
+    jg = jgrid(grid)
+    jlayout = JBlockLayout.build(jg, halo_table=False)
     np.testing.assert_array_equal(prep.layout.vox_slot, jlayout.vox_slot)
-    jtopo = JLevelTopology.build(jgrid)
-    jst = j_build_level_static(jlayout, jgrid, jtopo, tp.voxel_sh, device=False)
+    jtopo = JLevelTopology.build(jg)
+    jst = j_build_level_static(jlayout, jg, jtopo, tp.voxel_sh, device=False)
     for name, got, want in zip(static._fields, static, jst):
         np.testing.assert_array_equal(got, np.asarray(want), err_msg=name)
     jfb, jreason, jchunks = j_plan_eg_layout(

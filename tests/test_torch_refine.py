@@ -55,47 +55,17 @@ from intrinsic3d_torch.refine.optimizer import level_schur
 from intrinsic3d_torch.refine.solver import gn_iteration
 from intrinsic3d_torch.synthetic import build_sphere_problem
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _np(a):
-    return np.asarray(a)
-
-
-def _arrays(got, want):
-    got = got.detach().to(torch.float64).numpy() if torch.is_tensor(got) else np.asarray(got, np.float64)
-    return got, np.asarray(want, np.float64)
-
-
-def _close(got, want, rtol=1e-4):
-    got, want = _arrays(got, want)
-    floor = rtol * max(float(np.max(np.abs(want))) if want.size else 0.0, 1e-30)
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=floor)
-
-
-def _close_in_norm(got, want, rtol=1e-4, elem=1e-3):
-    got, want = _arrays(got, want)
-    scale = max(float(np.linalg.norm(want)), 1e-30)
-    assert np.linalg.norm(got - want) <= rtol * scale, np.linalg.norm(got - want) / scale
-    np.testing.assert_allclose(got, want, rtol=elem, atol=elem * float(np.max(np.abs(want), initial=0.0)))
+from torch_support import close, close_in_norm, one_torch_thread, to_numpy  # noqa: F401
 
 
 def _port_params(p):
-    return params_from_numpy(*(_np(a) for a in p), device="cpu")
+    return params_from_numpy(*(to_numpy(a) for a in p), device="cpu")
 
 
 def _port_asm(layout, basm):
     return block_assembly_from_numpy(
         layout,
-        *(_np(getattr(basm, f)) for f in (
+        *(to_numpy(getattr(basm, f)) for f in (
             "eg_w", "eg_sh", "eg_vpos", "er_w", "es_ref", "es_w", "ea_w", "lam", "images",
             "pyr_scale", "voxel_size",
         )),
@@ -153,7 +123,7 @@ def test_block_residuals_match(assembled):
     a = assembled
     want = jax.jit(jbf.block_all_residuals)(a["bp"], a["basm"])
     got = blockform.block_all_residuals(a["tparams"], a["tasm"])
-    _close(got, want)
+    close(got, want, 1e-4)
 
 
 def test_linearize_block_matches(assembled, jax_lin):
@@ -162,7 +132,7 @@ def test_linearize_block_matches(assembled, jax_lin):
     c_t, lin_t = blockform.linearize_block(a["tparams"], a["tasm"])
     assert float(c_t) == pytest.approx(float(c_j), rel=1e-4)
     for name in blockform.BlockLin._fields:
-        _close_in_norm(getattr(lin_t, name), getattr(lin_j, name))
+        close_in_norm(getattr(lin_t, name), getattr(lin_j, name))
     assert torch.isfinite(lin_t.a_sdf).all() and torch.isfinite(lin_t.a_pose).all()
 
 
@@ -185,13 +155,13 @@ def test_products_match(assembled, jax_lin, dtype):
     y_j = jbf.jv_block(lin_j, a["basm"], v_j)
     y_t = blockform.jv_block(lin_t, a["tasm"], v_t)
     for got, want in zip(y_t, y_j):
-        _close(got, want)
+        close(got, want, 1e-4)
     cot = [rng.normal(size=np.shape(t)).astype(np.float32) for t in y_j]
     g_j = jbf.jtv_block(lin_j, a["basm"], tuple(jnp.asarray(c) for c in cot))
     g_t = blockform.jtv_block(lin_t, a["tasm"], tuple(torch.as_tensor(c) for c in cot))
     for got, want in zip(g_t, g_j):
-        _close(got[:-1] if got.dim() == 2 and got.shape[1] == 512 else got,
-               _np(want)[:-1] if np.ndim(want) == 2 and np.shape(want)[1] == 512 else want)
+        close(got[:-1] if got.dim() == 2 and got.shape[1] == 512 else got,
+              to_numpy(want)[:-1] if np.ndim(want) == 2 and np.shape(want)[1] == 512 else want, 1e-4)
     # the port's pair is adjoint
     lhs = sum(float(torch.sum(y.double() * torch.as_tensor(c, dtype=torch.float64))) for y, c in zip(y_t, cot))
     rhs = sum(float(torch.sum(v.double() * g.double())) for v, g in zip(v_t, g_t))
@@ -200,13 +170,13 @@ def test_products_match(assembled, jax_lin, dtype):
     d_j = jbf.diag_from_lin(lin_j, a["basm"])
     d_t = blockform.diag_from_lin(lin_t, a["tasm"])
     for got, want in zip(d_t, d_j):
-        _close(got, want)
-    _close(blockform.global_gram(lin_t), jbf.global_gram(lin_j))
+        close(got, want, 1e-4)
+    close(blockform.global_gram(lin_t), jbf.global_gram(lin_j), 1e-4)
     gp, gi, gd = v_np[2], v_np[3], v_np[4]
-    _close(blockform.jg_apply(lin_t, *(torch.as_tensor(x) for x in (gp, gi, gd))),
-           jbf.jg_apply(lin_j, *(jnp.asarray(x) for x in (gp, gi, gd))))
+    close(blockform.jg_apply(lin_t, *(torch.as_tensor(x) for x in (gp, gi, gd))),
+          jbf.jg_apply(lin_j, *(jnp.asarray(x) for x in (gp, gi, gd))), 1e-4)
     for got, want in zip(blockform.jgt_apply(lin_t, torch.as_tensor(cot[0])), jbf.jgt_apply(lin_j, jnp.asarray(cot[0]))):
-        _close(got, want)
+        close(got, want, 1e-4)
 
 
 def test_level_topology_and_static_match(assembled):
@@ -216,7 +186,7 @@ def test_level_topology_and_static_match(assembled):
         np.testing.assert_array_equal(getattr(topo, f), getattr(a["prob"].topo, f))
     st = build_level_static(a["tl"], a["tgrid"], topo, a["prob"].voxel_sh, device="cpu")
     for f in st._fields:
-        np.testing.assert_array_equal(getattr(st, f).numpy(), _np(getattr(a["jst"], f)))
+        np.testing.assert_array_equal(getattr(st, f).numpy(), to_numpy(getattr(a["jst"], f)))
 
 
 @pytest.mark.parametrize("min_pose_obs", [0, 10**9])
@@ -238,17 +208,17 @@ def test_device_assembly_matches(assembled, min_pose_obs):
         **a["kw"], min_pose_obs=min_pose_obs, device="cpu",
     )
     for got, want in zip(bm_t, bm_j):
-        np.testing.assert_array_equal(got.numpy(), _np(want))
+        np.testing.assert_array_equal(got.numpy(), to_numpy(want))
     for f in ("er_w", "es_w", "es_ref", "ea_w", "eg_sh", "eg_vpos", "images"):
-        np.testing.assert_array_equal(getattr(basm_t, f).numpy(), _np(getattr(basm_j, f)))
+        np.testing.assert_array_equal(getattr(basm_t, f).numpy(), to_numpy(getattr(basm_j, f)))
     w_t = basm_t.eg_w.numpy()
-    w_j = _np(basm_j.eg_w)
+    w_j = to_numpy(basm_j.eg_w)
     act = (w_t > 0) | (w_j > 0)
     flips = np.count_nonzero((w_t > 0) != (w_j > 0))
     assert act.sum() > 100 and flips <= 0.01 * act.sum(), (flips, act.sum())
     both = (w_t > 0) & (w_j > 0)
     np.testing.assert_allclose(w_t[both], w_j[both], rtol=1e-5, atol=1e-7)
-    _close(basm_t.lam, basm_j.lam)
+    close(basm_t.lam, basm_j.lam, 1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -273,30 +243,40 @@ def schur_problem():
     jl = JBlockLayout.build(prob.grid)
     bp, basm, bm = jbf.to_block_problem(jl, prob.topo.coords, asm, masks, prob.params, num_obs=2)
     tl = BlockLayout.build(_port_grid(prob.grid))
-    return bp, basm, bm, _port_params(bp), _port_asm(tl, basm), masks_from_numpy(*(_np(m) for m in bm), device="cpu")
+    tm = masks_from_numpy(*(to_numpy(m) for m in bm), device="cpu")
+    return bp, basm, bm, _port_params(bp), _port_asm(tl, basm), tm
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """JAX's step of `schur_problem` by its `schur_globals`, run once each."""
+    return {}
 
 
 @pytest.mark.parametrize("schur", [True, False, "poses"])
-def test_gn_iteration_matches(schur_problem, schur):
+def test_gn_iteration_matches(schur_problem, jax_steps, schur):
     bp, basm, bm, tp, tasm, tm = schur_problem
     # test_schur.py's converged settings (heavy damping, tight forcing): both
     # branches solve far below the sampler noise, so the two implementations
     # take the same step; the port's elimination of the poses alone
     # ("poses", the camera in the PCG) solves the same damped system as
-    # JAX's elimination of the whole global block
+    # JAX's elimination of the whole global block, whose step the True case
+    # ran
     kw = dict(lm_steps=4, cg_iters=200, cg_coeff_dtype="float32", schur_globals=schur, cg_eta=1e-8)
     jkw = dict(kw, schur_globals=bool(schur))
-    p_j, c0_j, c1_j, mu_j, tr_j = j_gn_iteration(bp, basm, bm, jnp.float32(0.3), **jkw)
+    if jkw["schur_globals"] not in jax_steps:
+        jax_steps[jkw["schur_globals"]] = j_gn_iteration(bp, basm, bm, jnp.float32(0.3), **jkw)
+    p_j, c0_j, c1_j, mu_j, tr_j = jax_steps[jkw["schur_globals"]]
     p_t, c0_t, c1_t, mu_t, tr_t = gn_iteration(tp, tasm, tm, 0.3, **kw, device="cpu")
     assert tr_t == int(tr_j)
     assert float(c0_t) == pytest.approx(float(c0_j), rel=1e-4)
     assert float(c1_t) == pytest.approx(float(c1_j), rel=1e-4)
     assert float(c1_t) < float(c0_t)
     assert float(mu_t) == pytest.approx(float(mu_j), rel=1e-4)
-    np.testing.assert_allclose(p_t.poses.numpy(), _np(p_j.poses), rtol=1e-3, atol=1e-6)
-    np.testing.assert_allclose(p_t.intr.numpy(), _np(p_j.intr), rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(p_t.sdf.numpy(), _np(p_j.sdf), rtol=5e-3, atol=2e-6)
-    np.testing.assert_allclose(p_t.albedo.numpy(), _np(p_j.albedo), rtol=5e-3, atol=2e-6)
+    np.testing.assert_allclose(p_t.poses.numpy(), to_numpy(p_j.poses), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(p_t.intr.numpy(), to_numpy(p_j.intr), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(p_t.sdf.numpy(), to_numpy(p_j.sdf), rtol=5e-3, atol=2e-6)
+    np.testing.assert_allclose(p_t.albedo.numpy(), to_numpy(p_j.albedo), rtol=5e-3, atol=2e-6)
 
 
 def test_level_solve_keeps_a_free_camera_in_the_pcg():

@@ -45,7 +45,6 @@ import numpy as np
 import pytest
 import torch
 
-from intrinsic3d_tpu.camera import Camera as JCamera
 from intrinsic3d_tpu.config import RefinementConfig as JRefinementConfig
 from intrinsic3d_tpu.grid import algorithms as j_alg
 from intrinsic3d_tpu.grid import ops as j_gops
@@ -92,6 +91,8 @@ from intrinsic3d_torch.synthetic import (
     small_refinement_sensor,
 )
 
+from torch_support import jcam, jgrid, one_torch_thread, tensor  # noqa: F401
+
 PROBLEM = dict(
     voxel_size=0.015, image_size=(64, 48), num_frames=3, num_observations=2,
     perturb_sdf=0.002, perturb_albedo=0.05,
@@ -100,16 +101,6 @@ PROBLEM = dict(
 # the blocks (the planner's speed rule)
 CLOSE_EYES = ([0.0, 0.0, 0.33], [0.05, 0.0, 0.34], [-0.05, 0.02, 0.34])
 JAX_BYTES_PER_ELEMENT = 720  # the JAX planner's dense constant, pinned on both sides
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(**kw):
@@ -121,15 +112,6 @@ def _cfgs(**kw):
 def problems():
     jcfg, tcfg = _cfgs()
     return j_build_sphere_problem(**PROBLEM, cfg=jcfg), build_sphere_problem(**PROBLEM, cfg=tcfg, device="cpu")
-
-
-def _jgrid(g: VoxelGrid) -> JVoxelGrid:
-    c = lambda a: None if a is None else np.array(a)  # noqa: E731
-    return JVoxelGrid(
-        voxel_size=g.voxel_size, coords=c(g.coords), keys=c(g.keys), sdf=c(g.sdf), weight=c(g.weight),
-        color=c(g.color), albedo=c(g.albedo), sdf_refined=c(g.sdf_refined), depth_min=g.depth_min,
-        depth_max=g.depth_max, integration_weight_sample=g.integration_weight_sample,
-    )
 
 
 def _tgrid(g: JVoxelGrid) -> VoxelGrid:
@@ -151,14 +133,6 @@ def _noisy_level_grid(tp, seed=3) -> VoxelGrid:
     g.weight = np.where(rng.random(n) < 0.9, 1.0 + rng.random(n), 0.0).astype(np.float32)
     g.color = np.clip(g.color * rng.uniform(0.8, 1.2, (n, 3)), 0.0, 255.0).astype(np.float32)
     return g
-
-
-def _t(a, dtype=torch.float32):
-    return torch.as_tensor(np.array(a), dtype=dtype)
-
-
-def _jcam(cam: Camera) -> JCamera:
-    return JCamera.create(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height, np.asarray(cam.dist))
 
 
 # ---------------------------------------------------------------------------
@@ -189,13 +163,13 @@ def test_normals_and_iso_match_jax(problems):
     g = _noisy_level_grid(tp)
     nbr4 = g.neighbor_table(NORMAL_OFFSETS)
     jn, jok = j_gops.surface_normals(jnp.asarray(g.sdf_refined), jnp.asarray(nbr4), jnp.asarray(g.valid_mask()))
-    tn, tok = gops.surface_normals(_t(g.sdf_refined), _t(nbr4, torch.int64), _t(g.valid_mask(), torch.bool))
+    tn, tok = gops.surface_normals(tensor(g.sdf_refined), tensor(nbr4, torch.int64), tensor(g.valid_mask(), torch.bool))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     assert 0.5 * g.num_voxels < int(tok.sum()) < g.num_voxels
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), atol=1e-6)
     pts = g.voxel_to_world()
     jiso = j_gops.voxel_center_to_iso(jnp.asarray(pts), jn, jnp.asarray(g.sdf_refined))
-    tiso = gops.voxel_center_to_iso(_t(pts), tn, _t(g.sdf_refined))
+    tiso = gops.voxel_center_to_iso(tensor(pts), tn, tensor(g.sdf_refined))
     np.testing.assert_allclose(tiso.numpy(), np.asarray(jiso), atol=1e-7)
 
 
@@ -207,7 +181,7 @@ def test_observations_and_recolor_match_jax(problems):
     nbr4 = g.neighbor_table(NORMAL_OFFSETS)
     jn, _ = j_gops.surface_normals(jnp.asarray(g.sdf_refined), jnp.asarray(nbr4), jnp.asarray(g.valid_mask()))
     jiso = j_gops.voxel_center_to_iso(jnp.asarray(g.voxel_to_world()), jn, jnp.asarray(g.sdf_refined))
-    tn, tiso = _t(np.asarray(jn)), _t(np.asarray(jiso))
+    tn, tiso = tensor(np.asarray(jn)), tensor(np.asarray(jiso))
     colors = np.clip(np.stack([np.asarray(jp.images)] * 3, axis=-1) * 255.0, 0, 255).astype(np.uint8)
     occ = 0.04
     jcam, tcam = jp.cam, tp.cam
@@ -224,7 +198,7 @@ def test_observations_and_recolor_match_jax(problems):
     np.testing.assert_array_equal(tf.numpy()[seen], jf[seen])
     jc, jhas = j_recolor(jcam, jp.params.poses, jp.depths, jnp.asarray(colors), jiso, jn, jnp.asarray(jw),
                          jnp.asarray(jf), occ)
-    tc, thas = recolor(tcam, tp.params.poses, torch.as_tensor(colors), tiso, _t(jw), _t(jf, torch.int32))
+    tc, thas = recolor(tcam, tp.params.poses, torch.as_tensor(colors), tiso, tensor(jw), tensor(jf, torch.int32))
     np.testing.assert_array_equal(thas.numpy(), np.asarray(jhas))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-2)
 
@@ -251,7 +225,7 @@ def test_svsh_matches_jax(problems):
     _, tp = problems
     g = _noisy_level_grid(tp)
     thres = 2.0 * g.voxel_size
-    jres, jvox = j_svsh.estimate_svsh(_jgrid(g), 0.07, 10.0, thres, weighted=True, with_voxel_sh=True)
+    jres, jvox = j_svsh.estimate_svsh(jgrid(g), 0.07, 10.0, thres, weighted=True, with_voxel_sh=True)
     tres, tvox = svsh.estimate_svsh(g, 0.07, 10.0, thres, weighted=True, with_voxel_sh=True, device="cpu")
     assert tres.subvolumes.count == jres.subvolumes.count > 8
     scale = np.abs(jres.coeffs).max()
@@ -259,7 +233,7 @@ def test_svsh_matches_jax(problems):
     np.testing.assert_allclose(tvox, jvox, rtol=0, atol=1e-4 * scale)
     assert np.count_nonzero(np.any(tvox != 0.0, axis=1)) > 0.3 * g.num_voxels
     np.testing.assert_allclose(
-        svsh.voxel_sh_coeffs(tres, g, thres), j_svsh.voxel_sh_coeffs(jres, _jgrid(g), thres), atol=1e-4 * scale
+        svsh.voxel_sh_coeffs(tres, g, thres), j_svsh.voxel_sh_coeffs(jres, jgrid(g), thres), atol=1e-4 * scale
     )
 
 
@@ -274,7 +248,7 @@ def test_solve_block_system_matches_jax():
     pairs = np.stack([src, dst], -1).astype(np.int32)
     want = np.asarray(j_svsh.solve_block_system(jnp.asarray(a_blocks), jnp.asarray(b), jnp.asarray(pairs), s,
                                                 jnp.float32(10.0)))
-    got = svsh.solve_block_system(_t(a_blocks), _t(b), _t(pairs, torch.int64), s, 10.0).numpy()
+    got = svsh.solve_block_system(tensor(a_blocks), tensor(b), tensor(pairs, torch.int64), s, 10.0).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
@@ -300,7 +274,7 @@ def test_thin_shell_routes_match_jax_host_route(thres):
     if thres == 0.0041:
         assert float(np.float32(thres)) > thres
         g.sdf_refined[np.argmin(np.abs(np.abs(g.sdf_refined) - thres))] = np.float32(thres)
-    want = j_alg.clear_voxels_outside_thin_shell(_jgrid(g), thres, use_device=False)
+    want = j_alg.clear_voxels_outside_thin_shell(jgrid(g), thres, use_device=False)
     assert 0 < want.num_voxels < g.num_voxels
     for dense in (False, True):
         got = alg.clear_voxels_outside_thin_shell(g, thres, dense=dense, device="cpu")
@@ -319,12 +293,12 @@ def test_upsample_and_interpolate_fields_bitwise():
     g.albedo = rng.random(n).astype(np.float32)
     g.sdf_refined = rng.normal(size=n).astype(np.float32)
     pos = rng.uniform(-5.5, 5.0, (500, 3))
-    want = j_alg.interpolate_fields(_jgrid(g), pos)
+    want = j_alg.interpolate_fields(jgrid(g), pos)
     got = alg.interpolate_fields(g, pos)
     assert set(got) == set(want)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    jup, tup = j_alg.upsample(_jgrid(g)), alg.upsample(g, device="cpu")
+    jup, tup = j_alg.upsample(jgrid(g)), alg.upsample(g, device="cpu")
     assert tup.voxel_size == jup.voxel_size
     for f in ("coords", "keys", "sdf", "weight", "color", "albedo", "sdf_refined"):
         np.testing.assert_array_equal(getattr(tup, f), getattr(jup, f), err_msg=f)
@@ -447,7 +421,7 @@ def _small_scene():
 
 def _jax_sensor(t: MemorySensor) -> JMemorySensor:
     n = t.num_frames
-    return JMemorySensor(_jcam(t.color_cam), _jcam(t.depth_cam), [t.color(i) for i in range(n)],
+    return JMemorySensor(jcam(t.color_cam), jcam(t.depth_cam), [t.color(i) for i in range(n)],
                          [t.depth(i) for i in range(n)], [np.array(t.pose(i)) for i in range(n)],
                          t.depth_min, t.depth_max)
 
@@ -474,7 +448,7 @@ def e2e():
         mp.setattr(j_i3d, "optimize_level", recording)
         jeng = j_i3d.Intrinsic3D(jcfg, _jax_sensor(sensor), list(range(5)), cg_iters=SMALL_CG_ITERS)
         jeng.add_callback(lambda i: jinfos.append((i.grid_level, i.pyramid_level)))
-        jref = jeng.refine(_jgrid(fused))
+        jref = jeng.refine(jgrid(fused))
     teng = Intrinsic3D(SMALL_REFINEMENT, small_refinement_sensor(), list(range(5)), cg_iters=SMALL_CG_ITERS,
                        device="cpu")
     teng.add_callback(lambda i: tinfos.append((i.grid_level, i.pyramid_level, i.stats)))
@@ -488,10 +462,10 @@ def test_optimize_level_matches_jax(e2e):
     inputs: per-iteration costs, tries, μ and the final parameters."""
     inputs, (jparams, jmu, jst) = e2e["levels"][0]
     assert inputs["rgbd"] == 1
-    p = Params(*(_t(np.asarray(f)) for f in inputs["params"]))
+    p = Params(*(tensor(np.asarray(f)) for f in inputs["params"]))
     cam = Camera.create(90.0, 90.0, 47.5, 35.5, 96, 72)
     params, mu, st = opt.optimize_level(
-        inputs["grid"], None, p, SMALL_REFINEMENT, cam, _t(inputs["depths"]), _t(inputs["images"]),
+        inputs["grid"], None, p, SMALL_REFINEMENT, cam, tensor(inputs["depths"]), tensor(inputs["images"]),
         inputs["voxel_sh"], inputs["thres"], inputs["rgbd"], mu0=inputs["mu0"], cg_iters=inputs["cg_iters"],
         device="cpu",
     )

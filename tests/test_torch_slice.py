@@ -41,6 +41,8 @@ from intrinsic3d_torch.refine.optimizer import fused_outer_step
 from intrinsic3d_torch.refine.solver import gn_iteration
 from intrinsic3d_torch.synthetic import BENCH_MU0, build_sphere_problem
 
+from torch_support import one_torch_thread  # noqa: F401
+
 PROBLEM = dict(
     voxel_size=0.02, image_size=(64, 48), num_frames=2, num_observations=2,
     perturb_sdf=0.002, perturb_albedo=0.05,
@@ -49,16 +51,6 @@ SOLVER = dict(lm_steps=3, cg_iters=200, cg_eta=1e-8, schur_globals=True)
 MU0 = 0.3
 PRODUCTION = dict(lm_steps=8, cg_iters=12, cg_eta=0.1, schur_globals=True, cg_coeff_dtype="bfloat16")
 ROUNDING_NOISE = 1e-7  # relative, on the input images
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs test files in parallel worker processes: one intra-op
-    thread per process keeps torch from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

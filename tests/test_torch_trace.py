@@ -37,6 +37,8 @@ from intrinsic3d_torch.synthetic import (
     small_refinement_sensor,
 )
 
+from torch_support import one_torch_thread  # noqa: F401
+
 # the `stats` keys of the scene's refinement, in order
 STATS_KEYS = [
     "pyramids", "initial_recolor", "sparsify[g1]", "topology[g1]", "svsh[g1p1]", "prefetch[p1v2372]",
@@ -48,14 +50,6 @@ STATS_KEYS = [
 PHASES = [k for k in STATS_KEYS if not k.startswith(("prefetch[", "upsample_prep["))]
 CHILDREN = {"join[": ("level_setup[", "sparsify[", "upsample["), "solve.assemble": ("solve[",),
             "solve.lm_try": ("solve[",), "solve.globals": ("solve[",), "upsample.fields": ("upsample[",)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _events(prof):
