@@ -82,10 +82,14 @@ tries, 12 CG steps):
    timing the kernel (CUDA graph, from Python, L2-flushed) beside its byte
    bound, the card's whole step (upload, launch, copy back) and the host's
    (`check_upsample`; the record's figures are the finest boundary's, each
-   boundary's under `boundaries`). The refinement runs
-   with the level pipeline on (the default): each level's layout, plan,
-   stencil tables and statics, and each grid-level boundary's upsample and
-   sparsify index tables, built on background threads;
+   boundary's under `boundaries`). On each grid level's grid (those parents
+   and the refined grid) it holds the level-statics kernel bit for bit to
+   the host build and times it likewise, beside the card's whole build and
+   the host's (`check_level_static`); the kernel must have launched once a
+   level. The refinement runs
+   with the level pipeline on (the default): each level's layout and plan,
+   and each grid-level boundary's upsample and sparsify index tables, built
+   on background threads, each level's statics on the card after its join;
 7a. refines the same fused grid four more times, capturing nothing, with
    the level pipeline off, on, on and off (`Intrinsic3D(prefetch=)`);
    prints each run's wall clock, its phases by kind and by name (the
@@ -579,6 +583,80 @@ def check_upsample(parents: list) -> dict:
         fail("the pipeline refinement handed upsample no grid")
     return dict(name="upsample_fields", route="cuda", source="intrinsic3d_torch/csrc/upsample_fields.cu",
                 replaces="none (host numpy)", **out[-1], library_ms=None, boundaries=out)
+
+
+def check_level_static(grids: list) -> dict:
+    """The level-statics kernel (`ops.level_static.level_static`) on the
+    grid of each of the pipeline refinement's grid levels (the parents the
+    boundaries handed `upsample`, then the refined grid), with random
+    per-voxel SH: the statics `build_level_static` builds on the card bit
+    for bit those of the host build (`level_static_host` with the SH, from
+    the grid's stencil tables); the kernel timed in a CUDA graph, from
+    Python and L2-flushed beside its byte bound (each byte the function
+    needs read or written once: the voxels' slot, sdf, weight, colour and
+    SH, the block tables, and the six statics); and the wall ms of the
+    card's whole build (upload, memset and launches, as `build_level_static`
+    takes it) and of the host's (the statics, and the stencil tables they
+    read), medians of 5 after one untimed call. Returns the finest level's
+    record with every level's figures under `levels`."""
+    import numpy as np
+    import torch
+
+    from intrinsic3d_torch.grid.blocks import BlockLayout
+    from intrinsic3d_torch.ops.level_static import inputs_of, level_static
+    from intrinsic3d_torch.ops.roofline import bound, cold_ms
+    from intrinsic3d_torch.refine.assembly import LevelTopology
+    from intrinsic3d_torch.refine.device_assembly import build_level_static, level_static_host
+
+    def wall_ms(fn, reps: int = 5) -> float:
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    def bits(a):
+        return np.ascontiguousarray(a.cpu().numpy() if torch.is_tensor(a) else a).view(np.int32)
+
+    out = []
+    for g in grids:
+        layout = BlockLayout.build(g)
+        sh = np.random.default_rng(g.num_voxels).normal(size=(g.num_voxels, 9)).astype(np.float32)
+        topo = LevelTopology.build(g)
+        host = level_static_host(layout, g, topo, sh)
+        card = build_level_static(layout, g, None, sh, device="cuda")
+        for field, a, b in zip(card._fields, card, host):
+            if not np.array_equal(bits(a), bits(b)):
+                fail(f"level_static ({g.num_voxels} voxels): {field} differs from the host build")
+        args = [torch.as_tensor(a, device="cuda") for a in inputs_of(layout, g, sh)]
+        n, nb, slots = g.num_voxels, layout.num_blocks, layout.num_blocks * layout.block**3
+        # inputs: slot, sdf, weight, colour and SH a voxel, nbr27 and the
+        # coordinates a block; outputs: occ and valid with their pad row,
+        # and vpos, es_ref, eg_sh and ea_chroma a slot
+        nbytes = (n * (8 + 4 + 4 + 12 + 36) + nb * (27 * 4 + 3 * 8) + 2 * 4 * (slots + layout.block**3)
+                  + slots * 4 * (3 + 1 + 9 + 3))
+        b_ms, b_by = bound(nbytes, 0)
+        kernel = lambda: level_static(*args, layout.block)  # noqa: E731
+        rec = dict(voxels=n, blocks=nb, bitwise=True, bytes=nbytes, ms=graph_ms(kernel), call_ms=cuda_ms(kernel),
+                   cold_ms=cold_ms(kernel), bound_ms=b_ms, bound_by=b_by,
+                   card_step_ms=wall_ms(lambda: build_level_static(layout, g, None, sh, device="cuda")),
+                   host_ms=wall_ms(lambda: level_static_host(layout, g, topo, sh)),
+                   topology_ms=wall_ms(lambda: LevelTopology.build(g), 1))
+        rec["pct_of_bound"] = 100 * b_ms / rec["cold_ms"]
+        log(f"  level_static: voxels={n} blocks={nb} bitwise to the host build; ms={rec['ms']:.4f} "
+            f"call_ms={rec['call_ms']:.4f} cold_ms={rec['cold_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{nbytes / 1e6:.1f} MB) pct_of_bound={rec['pct_of_bound']:.1f}; build on the card "
+            f"{rec['card_step_ms']:.2f} ms (upload, memset, launches) against the host's {rec['host_ms']:.1f} ms "
+            f"and its stencil tables' {rec['topology_ms']:.1f} ms")
+        out.append(rec)
+        del args, card
+    if not out:
+        fail("the pipeline refinement left no grid level")
+    return dict(name="level_static", route="cuda", source="intrinsic3d_torch/csrc/level_static.cu",
+                replaces="none (host numpy)", **out[-1], library_ms=None, levels=out)
 
 
 def check_kernels(captured: dict) -> list:
@@ -1245,6 +1323,8 @@ def check_refinement(run: dict, sensor, keyframes, dataset: dict) -> None:
     if run["launches"]["upsample_fields"] != n_boundaries:
         fail(f"the upsample kernel launched {run['launches']['upsample_fields']} times for {n_boundaries} grid-level "
              f"boundaries")
+    if run["launches"]["level_static"] != len(schedule):
+        fail(f"the level-statics kernel launched {run['launches']['level_static']} times for {len(schedule)} levels")
     from intrinsic3d_torch.synthetic import refined_sdf_error
 
     med, p90, med0, n_shell = refined_sdf_error(refined, dataset["center"], dataset["radius"])
@@ -1263,7 +1343,8 @@ def refinement_phase(fusion: dict) -> dict:
     versions on each level's first inputs (`check_levels`). Returns the
     launches, the per-level records, the levels' recorded `optimize_level`
     inputs (`inputs`), the per-level sampler records (`sampler_levels`) and
-    the upsample kernel's record (`upsample`, `check_upsample`)."""
+    the upsample kernel's record (`upsample`, `check_upsample`) and the
+    level-statics kernel's (`level_static`, `check_level_static`)."""
     from intrinsic3d_torch.synthetic import PIPELINE_DATASET
 
     run = run_refinement("refinement", fusion["sensor"], fusion["keyframes"], fusion["initial"], fusion["grid"],
@@ -1273,7 +1354,9 @@ def refinement_phase(fusion: dict) -> dict:
             fail(f"level {r['level']} was planned '{r['reason']}', not dense")
     check_refinement(run, fusion["sensor"], fusion["keyframes"], PIPELINE_DATASET)
     run["sampler_levels"] = check_levels(run)
-    run["upsample"] = check_upsample(run.pop("boundaries"))
+    parents = run.pop("boundaries")
+    run["upsample"] = check_upsample(parents)
+    run["level_static"] = check_level_static(parents + [run["refined"]])
     del run["sampler_calls"]
     return run
 
@@ -1631,18 +1714,18 @@ def apps_phase() -> dict:
     export_s = time.perf_counter() - t0
     apps = dict(keyframes=app_keyframes, fusion=app_fusion, intrinsic3d=app_intrinsic3d)
 
-    # the grid each grid level's topology is built from, coarsest first
-    # (references only)
-    level_grids, real_topology = [], intrinsic3d.level_topology
+    # the grid of each grid level, coarsest first, as its lighting estimate
+    # takes it (references only)
+    level_grids, real_svsh = [], intrinsic3d.estimate_svsh
 
-    def keep_grid(grid):
+    def keep_grid(grid, *args, **kw):
         if not any(g is grid for g in level_grids):
             level_grids.append(grid)
-        return real_topology(grid)
+        return real_svsh(grid, *args, **kw)
 
     cwd = os.getcwd()
     wall, stats = {}, {}
-    intrinsic3d.level_topology = keep_grid
+    intrinsic3d.estimate_svsh = keep_grid
     try:
         torch.cuda.synchronize()
         build.reset_launches()
@@ -1660,7 +1743,7 @@ def apps_phase() -> dict:
                 fail(f"app_{stage}.main returned {rc}")
         launches = dict(build.LAUNCHES)
     finally:
-        intrinsic3d.level_topology = real_topology
+        intrinsic3d.estimate_svsh = real_svsh
     # the engine numbers its grid levels from the finest (0) up
     level_grids = {f"g{spec.grid_levels - 1 - i}": g for i, g in enumerate(level_grids)}
 
@@ -2136,10 +2219,11 @@ def main() -> int:
             r.update(refinement["sampler_levels"][r["name"]])
     # the upsample kernel runs at the grid-level boundaries alone: its
     # launches are the pipeline refinement's
-    rec = refinement.pop("upsample")
-    rec.update(launches=refinement["launches"]["upsample_fields"], status="ok",
-               launches_pipeline_refinement=refinement["launches"]["upsample_fields"])
-    records.append(rec)
+    for name, key in (("upsample_fields", "upsample"), ("level_static", "level_static")):
+        rec = refinement.pop(key)
+        rec.update(launches=refinement["launches"][name], status="ok",
+                   launches_pipeline_refinement=refinement["launches"][name])
+        records.append(rec)
     window_inputs, fusion_launches = fusion["window"], fusion["launches"]
     log("phase check: the pipeline refinement ran every level dense through the kernels and met its bars")
 
@@ -2220,8 +2304,8 @@ def main() -> int:
         r["launches_flat"] = flat["launches"][r["name"]]
         if r["name"] in ("bicubic_rows_fwd", "bicubic_rows_fwdgrad", "nearest_rows") and r["launches_flat"] == 0:
             fail(f"kernel {r['name']} was never launched on the flat path")
-    if len(records) != 8:
-        fail(f"{len(records)} kernel records, expected 8")
+    if len(records) != 9:
+        fail(f"{len(records)} kernel records, expected 9")
     kernels = {"kernels": records}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

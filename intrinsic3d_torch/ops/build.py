@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "intrinsic3d_torch"
-SOURCES = ("bicubic_rows", "nearest_rows", "correct_sdf_dense", "eg_rows", "upsample_fields")
+SOURCES = ("bicubic_rows", "nearest_rows", "correct_sdf_dense", "eg_rows", "upsample_fields", "level_static")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "eg_rows_lin": 0,
     "eg_rows_value": 0,
     "upsample_fields": 0,
+    "level_static": 0,
 }
 
 

@@ -2,7 +2,8 @@
 
 The refinement's level loop builds, between device stages, host structures
 that depend only on what is already fixed when the previous stage starts:
-a level's block layout, element plan, stencil tables and statics
+a level's block layout and element plan, and where the level builds its
+statics on the host its stencil tables and statics too
 (`refine.optimizer.LevelPrep`, overlapped with the SVSH lighting estimate),
 and the next grid level's upsample and sparsify index tables
 (`grid.algorithms.UpsamplePrep`, overlapped with the solve). `HostPrep` is

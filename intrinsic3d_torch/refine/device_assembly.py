@@ -6,7 +6,8 @@ with the per-voxel top-N, the creation-time validity probe
 (``shading_cost.cpp:136-147``), the ×1000 per-type weight normalization
 (``nls_solver.cpp:379-394``) and the free-parameter masks
 (``optimizer.cpp:285-361``), all computed densely over block slots.
-Per-level statics come from `build_level_static`, once per level. With
+Per-level statics come from `build_level_static`, once per level (on the
+card through the `level_static` kernel, on the CPU from the host build). With
 `bmap` the E_g elements are frame-bucketed (`blockform.BlockAssembly`): the
 observations, the validity probe and the weights are evaluated only on each
 frame's visible blocks. With `mesh` (the JAX function's `axis_name`) the
@@ -28,6 +29,8 @@ from intrinsic3d_torch.grid.blocks import BlockLayout, ShiftPlan, pad_flat
 from intrinsic3d_torch.grid.voxel_grid import VoxelGrid
 from intrinsic3d_torch.mathutil import sdf_to_weight
 from intrinsic3d_torch.observations import compute_observations_batch
+from intrinsic3d_torch.ops.level_static import inputs_of as level_static_inputs
+from intrinsic3d_torch.ops.level_static import level_static as level_static_kernel
 from intrinsic3d_torch.refine.assembly import LevelTopology, chroma_weights
 from intrinsic3d_torch.refine.blockform import BlockAssembly, _PLUS, _RING6, _eg_dense, _stencil_for
 from intrinsic3d_torch.refine.residuals import Params
@@ -118,16 +121,31 @@ def upload_level_static(host: LevelStatic, device="cuda") -> LevelStatic:
     return LevelStatic(*(torch.as_tensor(a, device=dev) for a in host))
 
 
+def statics_on_card(device, mesh=None) -> bool:
+    """Whether a level builds its statics on the card (`build_level_static`
+    through the `level_static` kernel): a single-device block level on a
+    CUDA device. The mesh runner's ranks slice host statics into bricks,
+    and a CPU level builds them on the host."""
+    return mesh is None and torch.device(device).type == "cuda"
+
+
 def build_level_static(
     layout: BlockLayout,
     grid: VoxelGrid,
-    topo: LevelTopology,
+    topo: Optional[LevelTopology],
     voxel_sh: np.ndarray,
     device="cuda",
 ) -> LevelStatic:
-    """Host-side, once per level: scatter the static table fields to dense
-    block slots and move them to `device`."""
-    return upload_level_static(level_static_host(layout, grid, topo, voxel_sh), device)
+    """Once per level, the statics on `device`. On a CUDA device the
+    `level_static` kernel builds them from the layout and the grid's fields
+    (`topo` unused: None will do), bitwise `level_static_host` followed by
+    `fill_voxel_sh`; elsewhere the host build from `topo` is uploaded."""
+    dev = resolve_device(device)
+    if not statics_on_card(dev):
+        return upload_level_static(level_static_host(layout, grid, topo, voxel_sh), dev)
+
+    inputs = (torch.as_tensor(a, device=dev) for a in level_static_inputs(layout, grid, voxel_sh))
+    return LevelStatic(*level_static_kernel(*inputs, layout.block))
 
 
 def device_assembly(

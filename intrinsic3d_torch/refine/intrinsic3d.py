@@ -12,8 +12,10 @@ intrinsics written back after every level. With `mesh` every device stage
 of the level loop runs spatially sharded over the ranks
 (`refine/mesh_pipeline.py`). With `prefetch` (the default) the host
 half of each level is built on background threads while the card works, as
-in the JAX package: a level's layout, plan, stencil tables and statics
-during its lighting estimate (`optimizer.LevelPrep`), the next pyramid
+in the JAX package: a level's layout and plan during its lighting estimate
+(`optimizer.LevelPrep`; its stencil tables and host statics too where the
+level builds its statics on the host, off the card or on a mesh: a
+single-device level on the card builds them there), the next pyramid
 level's plan during the recolor, and the grid-level boundary's upsample and
 sparsify index tables during the solve (`grid.algorithms.UpsamplePrep`);
 the results are bitwise those of the serial path (`prefetch=False`).
@@ -44,6 +46,7 @@ from intrinsic3d_torch.lighting.svsh import estimate_svsh
 from intrinsic3d_torch.mathutil import compute_varying_lambda, invert_pose, pose_matrix_to_vec, pose_vec_to_matrix
 from intrinsic3d_torch.observations import collect_observations, recolor
 from intrinsic3d_torch.refine.assembly import level_topology
+from intrinsic3d_torch.refine.device_assembly import statics_on_card
 from intrinsic3d_torch.refine.optimizer import LevelPrep, OptimizeStats, level_budget, optimize_level
 from intrinsic3d_torch.refine.residuals import Params
 from intrinsic3d_torch.timer import collect, record_phase, span
@@ -69,8 +72,9 @@ class Intrinsic3D:
     `cg_coeff_dtype` and `cg_eta` pass through to every level's
     `optimize_level` (the JAX driver runs their defaults). The constructor
     and `refine` run each phase in a `timer.span` under the JAX package's
-    phase names (plus `topology[g*]`, the level's host stencil tables; the
-    JAX program's `first_dispatch` has no counterpart), which records its
+    phase names (plus `topology[g*]`, the level's host stencil tables on
+    the main thread; the JAX program's `first_dispatch` has no
+    counterpart), which records its
     host-clock seconds with `timer.record_phase`, as the JAX driver does
     (`optimize_level` records the levels' `level_setup` and `solve`). When
     `stats` is a dict they also put each phase there under the same name
@@ -173,8 +177,7 @@ class Intrinsic3D:
         mesh = self.mesh
         return self._start(LevelPrep(
             grid, topo, params, self.cfg, self._host_depths(rgbd_lvl), thres_shell, rgbd_lvl,
-            budget=level_budget(self.device, mesh), layout=layout,
-            blocks_multiple=8 if mesh is None else max(8, mesh.size), program_only=program_only,
+            budget=level_budget(self.device, mesh), layout=layout, mesh=mesh, program_only=program_only,
         ))
 
     def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
@@ -267,8 +270,9 @@ class Intrinsic3D:
                 continue
             log.info("level %d (pyramid %d)", grid_lvl, rgbd_lvl)
             if prep is None and self.prefetch:
-                # the level's layout, plan, stencil tables and statics, built
-                # while the lighting estimate below runs
+                # the level's layout and plan (off the card also its stencil
+                # tables and host statics), built while the lighting estimate
+                # below runs
                 prep = self._level_prep(grid, None, params, thres_shell, rgbd_lvl)
             # lighting estimation (``intrinsic3d.cpp:250-270``)
             with span(f"svsh[g{grid_lvl}p{rgbd_lvl}]", phase=True):
@@ -365,13 +369,16 @@ class Intrinsic3D:
                 log.info("   sparsified to %d voxels", grid.num_voxels)
                 params = self._params(grid, params.poses, params.intr, params.dist)
             bprep = None
-            # the level's stencil tables: with `prefetch` the main thread
-            # builds only the normal stencil (SVSH, recolor) and the level
-            # preps build the rest (`level_topology`, memoized per grid)
+            # the level's stencil tables: the main thread builds only the
+            # normal stencil (SVSH, recolor) where the levels need no other
+            # (a single-device level on the card builds its statics from the
+            # layout) or the level preps build the rest (`level_topology`,
+            # memoized per grid)
             with span(f"topology[g{grid_lvl}]", phase=True):
-                if self.prefetch:
-                    topo = None
-                    nbr4 = grid.neighbor_table(NORMAL_OFFSETS) if self.mesh is None else None
+                if self.mesh is None and (self.prefetch or statics_on_card(self.device)):
+                    topo, nbr4 = None, grid.neighbor_table(NORMAL_OFFSETS)
+                elif self.prefetch:
+                    topo, nbr4 = None, None
                 else:
                     topo = level_topology(grid)
                     nbr4 = topo.nbr4_idx

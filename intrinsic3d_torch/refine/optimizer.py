@@ -19,8 +19,9 @@ setup and solve are `timer.span` phases under the JAX package's names
 reads are counted in `timer.HOST_READS` (`OptimizeStats.host_reads`).
 `optimize_level(mesh=)` runs the same outer loop on one rank's brick of a
 spatially sharded level (`parallel.spmd.SpmdLevel`). `LevelPrep` builds a
-level's host half (layout, plan, stencil tables, statics with zero SH) on a
-background thread while the caller estimates the lighting, and
+level's host half on a background thread while the caller estimates the
+lighting (layout and plan; where the level builds its statics on the host,
+the stencil tables and the statics with zero SH too), and
 `optimize_level(prep=)` takes it over; the JAX package's program warm-up in
 the same class has no counterpart (the card has no program to load).
 """
@@ -54,9 +55,11 @@ from intrinsic3d_torch.refine.blockform import (
 from intrinsic3d_torch.prefetch import HostPrep
 from intrinsic3d_torch.refine.device_assembly import (
     LevelStatic,
+    build_level_static,
     device_assembly,
     fill_voxel_sh,
     level_static_host,
+    statics_on_card,
     upload_level_static,
 )
 from intrinsic3d_torch.refine.residuals import Params
@@ -375,18 +378,23 @@ def prepare_level(
     """Block layout (built unless given), level statics, shift plans and
     block-dense parameters of one level, on `device`. `lambdas` are the raw
     (λ_g, λ_r, λ_s, λ_a); `bmap` (host frame buckets, `plan_eg_layout`'s) and
-    `eg_chunks` set the E_g element layout. `static` (a host static of
-    `layout`, `level_static_host`'s) is uploaded instead of built from
-    `topo` and `voxel_sh`."""
+    `eg_chunks` set the E_g element layout. The statics come from
+    `build_level_static` (on a CUDA device the `level_static` kernel, which
+    needs no `topo`; elsewhere the host build from `topo` and `voxel_sh`),
+    or `static` (a host static of `layout`, `level_static_host`'s) is
+    uploaded instead; either under a `level_setup.static` span."""
     dev = resolve_device(device)
     if layout is None:
         layout = BlockLayout.build(grid)
-    if static is None:
-        static = level_static_host(layout, grid, topo, voxel_sh)
+    with span("level_setup.static"):
+        if static is None:
+            static = build_level_static(layout, grid, topo, voxel_sh, dev)
+        else:
+            static = upload_level_static(static, dev)
     sdf_plan, alb_plan = layout_plans(layout, dev)
     return LevelSetup(
         layout=layout,
-        static=upload_level_static(static, dev),
+        static=static,
         sdf_plan=sdf_plan,
         alb_plan=alb_plan,
         params=params._replace(
@@ -446,22 +454,26 @@ class LevelPrep(HostPrep):
 
     Started before the level's lighting estimate (which needs only the
     normal stencil `nbr4`), the thread builds what `optimize_level` would
-    build after it: the `BlockLayout` (unless `layout` is given), the
-    `plan_eg_layout` decision `(bmap, reason, eg_chunks)` against `budget`,
-    `level_topology(grid)` (unless `topo` is given; memoized per grid; on a
-    second thread, beside the layout and the plan) and the level statics
-    with zero SH (`level_static_host`). `optimize_level(prep=)` joins it,
-    writes the real per-voxel SH into the statics and uploads them on the
-    calling thread. `program_only=True` (the next pyramid
-    level of the coarsest grid, started while the current one recolors and
-    the grid's colors still change) plans only and reuses `layout`; the
-    level then builds its statics itself.
+    build after it: the `BlockLayout` (unless `layout` is given) and the
+    `plan_eg_layout` decision `(bmap, reason, eg_chunks)` against `budget`.
+    Where the level builds its statics on the host (a CPU level, or a rank
+    of `mesh`: not `statics_on_card` of the params' device), it builds
+    `level_topology(grid)` too (unless `topo` is given; memoized per grid;
+    on a second thread, beside the layout and the plan) and the level
+    statics with zero SH (`level_static_host`); `optimize_level(prep=)`
+    joins it, writes the real per-voxel SH into the statics and uploads
+    them on the calling thread. A single-device level on a CUDA device
+    builds its statics on the card after the join, from the layout alone.
+    `program_only=True` (the next pyramid level of the coarsest grid,
+    started while the current one recolors and the grid's colors still
+    change) plans only and reuses `layout`; the level then builds its
+    statics itself.
 
     The constructor, on the calling thread, pulls the poses and intrinsics
     to numpy; `depths_host` is the level's depth maps already on the host
     and `budget` a number (`level_budget`), so the thread calls nothing of
     CUDA. Its products are numpy arrays and host objects: `layout`, `plan`,
-    `topo`, `static` (None with `program_only`)."""
+    `topo` and `static` (None where the prep builds no host statics)."""
 
     def __init__(
         self,
@@ -475,7 +487,7 @@ class LevelPrep(HostPrep):
         *,
         budget: float,
         layout: Optional[BlockLayout] = None,
-        blocks_multiple: int = 8,
+        mesh=None,
         program_only: bool = False,
     ):
         if program_only and layout is None:
@@ -485,21 +497,21 @@ class LevelPrep(HostPrep):
         self.layout = layout
         self.rgbd_level = rgbd_level
         self.budget = float(budget)
-        self.program_only = program_only
+        self.host_static = not program_only and not statics_on_card(params.sdf.device, mesh)
         h, w = int(depths_host.shape[1]), int(depths_host.shape[2])
         self.inputs = plan_inputs(params, depths_host, w, h, rgbd_level)
         self.plan = None  # (bmap [K, NBc] int32 or None, reason, eg_chunks)
         self.static = None  # LevelStatic of numpy arrays, zero SH
         self._cfg = cfg
         self._thres_shell = float(thres_shell)
-        self._blocks_multiple = blocks_multiple
+        self._blocks_multiple = 8 if mesh is None else max(8, mesh.size)
         super().__init__(f"level p{rgbd_level}v{grid.num_voxels}")
 
     def _prepare(self) -> None:
         grid = self.grid
         # the stencil tables (mostly the native library, which runs without
         # the GIL) on a second thread beside the layout and the plan
-        tables = _TopologyPrep(grid) if self.topo is None and not self.program_only else None
+        tables = _TopologyPrep(grid) if self.topo is None and self.host_static else None
         try:
             if self.layout is None:
                 self.layout = BlockLayout.build(grid, blocks_multiple=self._blocks_multiple)
@@ -508,7 +520,7 @@ class LevelPrep(HostPrep):
         finally:
             if tables is not None:
                 tables.wait()
-        if not self.program_only:
+        if self.host_static:
             if tables is not None:
                 self.topo = tables.result().topo
             self.static = level_static_host(self.layout, grid, self.topo, None)
@@ -622,9 +634,12 @@ def optimize_level(
     level's per-voxel SH is never whole on one rank.
 
     `prep` (a `LevelPrep` of this grid and pyramid level, block path only)
-    supplies the layout, the plan, the topology and the host statics built
-    in the background: the level joins it (its exception re-raises here),
-    writes `voxel_sh` into the statics and uploads them. The results are
+    supplies the layout and the plan built in the background, and where the
+    level builds its statics on the host the topology and the host statics:
+    the level joins it (its exception re-raises here), writes `voxel_sh`
+    into the statics and uploads them. A single-device level on a CUDA
+    device (`statics_on_card`), with a prep or without, builds its statics
+    on the card from the layout (`build_level_static`). The results are
     bitwise those of the serial build. Its thread's seconds are recorded
     under `prefetch[p{r}v{n}]`; `level_setup` is this thread's, the wait at
     the join (a `join[...]` span) included. A `budget` given with a prep
@@ -748,17 +763,20 @@ def optimize_level(
             budget = level_budget(dev, mesh)
 
         fb, reason, eg_chunks = prep.plan if prep is not None else plan(budget)
-        # the host statics; under a mesh with `eg_sh` they carry zero SH (the
-        # rank's own per-voxel SH replaces them on the card)
+        # the statics: on the card from the layout, or the host statics
+        # (under a mesh with `eg_sh` they carry zero SH: the rank's own
+        # per-voxel SH replaces them on the card)
         sh = voxel_sh if eg_sh is None else None
-        if prep is not None and prep.static is not None:
+        if statics_on_card(dev, mesh):
+            host = None
+        elif prep is not None and prep.static is not None:
             host = prep.static if sh is None else fill_voxel_sh(prep.static, layout, sh)
         else:
             topo = level_topology(grid) if topo is None else topo
             host = level_static_host(layout, grid, topo, sh)
         if mesh is None:
             level = prepare_level(
-                grid, None, None, params, cfg, thres_shell, w, h,
+                grid, None, sh, params, cfg, thres_shell, w, h,
                 lambdas=(cfg.lambda_g, cfg.lambda_r0, cfg.lambda_s0, cfg.lambda_a), pyr_scale=pyr_scale,
                 device=dev, layout=layout, bmap=fb, eg_chunks=eg_chunks, static=host,
             )

@@ -348,6 +348,160 @@ def test_upsample_kernel_refuses_bad_inputs(cuda_device):
     assert build.LAUNCHES == NO_LAUNCHES
 
 
+# ---------------------------------------------------------------------------
+# A block level's statics (csrc/level_static.cu)
+# ---------------------------------------------------------------------------
+
+
+def _static_grids():
+    """(name, grid, block) of the CPU tests' grids (tests/test_torch_level_static.py):
+    the boundary grid, the edge-case grid in 8³ and 3³ blocks, and the
+    end-to-end scene's two grid levels."""
+    from test_torch_level_static import _boundary_grid, _edge_grid, scene_grid_levels
+
+    levels = scene_grid_levels()
+    return [("boundary", _boundary_grid(), 8), ("edges", _edge_grid(), 8), ("edges-b3", _edge_grid(), 3),
+            ("scene-g1", levels["g1"], 8), ("scene-g0", levels["g0"], 8)]
+
+
+def _static_bits(static):
+    return [np.ascontiguousarray(a.cpu().numpy() if torch.is_tensor(a) else a).view(np.int32) for a in static]
+
+
+@pytest.mark.cuda
+def test_level_static_kernel_is_bitwise_the_host_build(cuda_device):
+    """The kernel (one call a level) against `level_static_host` with the
+    per-voxel SH, bit for bit, on the CPU tests' grids and on bench.py's
+    step level (4 mm, 8 frames at 320x240)."""
+    from intrinsic3d_torch.grid.blocks import BlockLayout
+    from intrinsic3d_torch.refine.assembly import LevelTopology
+    from intrinsic3d_torch.refine.device_assembly import build_level_static, level_static_host
+    from intrinsic3d_torch.synthetic import BENCH_PROBLEM, build_sphere_problem
+
+    bench = build_sphere_problem(**BENCH_PROBLEM, device=cuda_device)
+    cases = _static_grids() + [("bench", bench.grid, 8)]
+    for name, grid, block in cases:
+        layout = BlockLayout.build(grid, block=block, blocks_multiple=8 if block == 8 else 1)
+        sh = bench.voxel_sh if name == "bench" else np.random.default_rng(7).normal(size=(grid.num_voxels, 9))
+        build.reset_launches()
+        card = build_level_static(layout, grid, None, sh, device=cuda_device)
+        assert build.LAUNCHES == dict(NO_LAUNCHES, level_static=1), name
+        assert all(t.device.type == "cuda" for t in card)
+        host = level_static_host(layout, grid, LevelTopology.build(grid), sh)
+        for field, a, b, want in zip(card._fields, _static_bits(card), _static_bits(host), host):
+            assert tuple(a.shape) == want.shape and card._asdict()[field].dtype == torch.from_numpy(want).dtype
+            np.testing.assert_array_equal(a, b, err_msg=f"{name}: {field}")
+
+
+@pytest.mark.cuda
+def test_level_static_kernel_refuses_bad_inputs(cuda_device):
+    from intrinsic3d_torch.grid.blocks import BlockLayout
+    from intrinsic3d_torch.ops.level_static import inputs_of, level_static
+    from test_torch_level_static import _boundary_grid
+
+    g = _boundary_grid()
+    layout = BlockLayout.build(g)
+    args = [torch.as_tensor(a, device=cuda_device) for a in inputs_of(layout, g, np.zeros((g.num_voxels, 9)))]
+    build.reset_launches()
+    strided = torch.empty((g.num_voxels, 4), device=cuda_device)[:, :3]
+    strided.copy_(args[5])
+    for bad, (at, t) in {"float64 sdf": (3, args[3].double()), "int32 slots": (0, args[0].int()),
+                         "short sh": (6, args[6][:-1]), "not contiguous": (5, strided),
+                         "on the CPU": (4, args[4].cpu())}.items():
+        with pytest.raises(ValueError):
+            level_static(*args[:at], t, *args[at + 1:], layout.block)
+            pytest.fail(bad)
+    with pytest.raises(ValueError):
+        level_static(*args, 1)  # more voxels than 1³ blocks hold
+    assert build.LAUNCHES == NO_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_level_statics_on_the_card_are_bitwise_with_a_prep_and_without(cuda_device, monkeypatch):
+    """`optimize_level` on the card, serially, with a `LevelPrep` and with a
+    `program_only` one: each builds its statics once through the kernel
+    after the prep's join, bitwise the same and bitwise the host build; the
+    preps build no stencil table (the grid's topology memo stays empty) and
+    no host statics; the plans are equal and the first costs within rtol
+    1e-6 (the same inputs through atomic scatter-adds)."""
+    from intrinsic3d_torch.config import RefinementConfig
+    from intrinsic3d_torch.grid.blocks import BlockLayout
+    from intrinsic3d_torch.refine import optimizer as opt
+    from intrinsic3d_torch.refine.assembly import LevelTopology
+    from intrinsic3d_torch.refine.device_assembly import level_static_host
+    from intrinsic3d_torch.synthetic import build_sphere_problem
+
+    cfg = RefinementConfig(num_observations=2, occlusion_distance=0.04, fix_poses=False, frame_bucketing="always",
+                           iterations=1, lm_steps=4)
+    tp = build_sphere_problem(voxel_size=0.015, image_size=(64, 48), num_frames=3, num_observations=2,
+                              perturb_sdf=0.002, perturb_albedo=0.05, cfg=cfg, device=cuda_device)
+    built = []
+    real = opt.build_level_static
+    monkeypatch.setattr(opt, "build_level_static", lambda *a, **kw: built.append(real(*a, **kw)) or built[-1])
+    runs = {}
+    for mode in ("serial", "prep", "program_only"):
+        grid = tp.grid.clone()
+        prep = None
+        if mode != "serial":
+            layout = BlockLayout.build(grid) if mode == "program_only" else None
+            prep = opt.LevelPrep(grid, None, tp.params, cfg, tp.depths.cpu().numpy(), tp.thres_shell, 0,
+                                 budget=opt.level_budget(cuda_device), layout=layout,
+                                 program_only=mode == "program_only")
+        build.reset_launches()
+        _, _, st = opt.optimize_level(grid, None, tp.params, cfg, tp.cam, tp.depths, tp.images, tp.voxel_sh,
+                                      tp.thres_shell, 0, cg_iters=4, device=cuda_device, prep=prep)
+        assert build.LAUNCHES["level_static"] == 1 and len(built) == len(runs) + 1, mode
+        assert "_topo_cache" not in grid.__dict__, mode
+        if prep is not None:
+            assert not prep.host_static and prep.static is None and prep.topo is None
+        runs[mode] = st
+    host = level_static_host(BlockLayout.build(tp.grid), tp.grid, LevelTopology.build(tp.grid), tp.voxel_sh)
+    for static in built:
+        for a, b in zip(_static_bits(static), _static_bits(host)):
+            np.testing.assert_array_equal(a, b)
+    s0 = runs["serial"]
+    for st in runs.values():
+        assert (st.reason, st.bucket_blocks, st.eg_chunks, st.num_blocks) == (s0.reason, s0.bucket_blocks,
+                                                                              s0.eg_chunks, s0.num_blocks)
+        np.testing.assert_allclose(st.costs_before[0], s0.costs_before[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [True, False], ids=["prefetch", "serial"])
+def test_a_card_refinement_builds_no_stencil_table(cuda_device, monkeypatch, prefetch):
+    """The end-to-end scene refined on the card (3 block levels), with the
+    level pipeline on and off: no `LevelTopology.build` anywhere (the
+    main thread builds only the normal stencil), every `LevelPrep` with no
+    host statics, and one `level_static` launch a level."""
+    from intrinsic3d_torch.apps import app_fusion
+    from intrinsic3d_torch.config import FusionConfig
+    from intrinsic3d_torch.refine import assembly, intrinsic3d
+    from intrinsic3d_torch.synthetic import SMALL_REFINEMENT, SMALL_VOXEL, small_refinement_sensor
+
+    fused = app_fusion.run(
+        small_refinement_sensor(), FusionConfig(voxel_size=SMALL_VOXEL, discont_window_size=0), device="cpu"
+    )
+    tables, preps = [], []
+    monkeypatch.setattr(assembly.LevelTopology, "build", classmethod(lambda cls, g: tables.append(g)))
+
+    class Recorded(intrinsic3d.LevelPrep):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            preps.append(self)
+
+    monkeypatch.setattr(intrinsic3d, "LevelPrep", Recorded)
+    engine = intrinsic3d.Intrinsic3D(SMALL_REFINEMENT, small_refinement_sensor(), range(5), device=cuda_device,
+                                     prefetch=prefetch)
+    levels = []
+    engine.add_callback(lambda i: levels.append((i.grid_level, i.pyramid_level)))
+    build.reset_launches()
+    engine.refine(fused)
+    assert levels == [(1, 1), (1, 0), (0, 0)]
+    assert tables == [] and build.LAUNCHES["level_static"] == len(levels)
+    assert len(preps) == (len(levels) if prefetch else 0)
+    assert all(p.static is None and p.topo is None and not p.host_static for p in preps)
+
+
 @pytest.mark.cuda
 def test_bicubic_sample_kernels_match_plain(cuda_device):
     """K4a (value) and K4b (g·∂x, g·∂y recomputed from the taps) against the

@@ -49,7 +49,8 @@ STATS_KEYS = [
 # the phases that are spans (the others are the prep threads' own seconds)
 PHASES = [k for k in STATS_KEYS if not k.startswith(("prefetch[", "upsample_prep["))]
 CHILDREN = {"join[": ("level_setup[", "sparsify[", "upsample["), "solve.assemble": ("solve[",),
-            "solve.lm_try": ("solve[",), "solve.globals": ("solve[",), "upsample.fields": ("upsample[",)}
+            "solve.lm_try": ("solve[",), "solve.globals": ("solve[",), "upsample.fields": ("upsample[",),
+            "level_setup.static": ("level_setup[",)}
 
 
 def _events(prof):
@@ -116,7 +117,7 @@ def test_no_span_takes_a_mark_name_and_none_opens_off_the_main_thread(runs):
     assert len({s[3] for s in spans}) == 1
     known = re.compile(r"(pyramids|initial_recolor|(sparsify|topology|upsample)\[g\d+\]|(svsh|recolor)\[g\d+p\d+\]"
                        r"|(level_setup|solve)\[p\d+v\d+\]|join\[i3d-prep:.+\]|solve\.assemble|solve\.lm_try"
-                       r"|solve\.globals|upsample\.fields)$")
+                       r"|solve\.globals|upsample\.fields|level_setup\.static)$")
     assert [s[0] for s in spans if not known.match(s[0])] == []
 
 

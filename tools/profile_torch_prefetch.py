@@ -15,12 +15,16 @@ reorder, the child's sparsify inputs) on a background thread, one stage at a
 time, while the main thread launches tiny device operations back to back, as
 the eager solve does. Each operation releases the GIL inside ATen and takes
 it back after, so while a stage holds the GIL the main thread waits: the
-convoy. Per stage it prints the stage's seconds, the main thread's
+convoy. On the card it also times the statics' build there, from the
+layout, on the main thread (`build_level_static`), which replaces the
+stencil tables and the host statics of a single-device level's prep. Per
+stage it prints the stage's seconds, the main thread's
 operations in that time, their median and largest duration, and the
 seconds they took beyond the idle median (the convoy seconds; its share of
 the stage's seconds is what the solve would lose while that stage
 overlaps it). Last, each prep whole, as the refinement runs it
 (`level_prep`, `upsample_prep`). Writes chiprun_out/profile_prefetch.json.
+On the card a level's prep builds the layout and the plan only.
 
 `--device cpu` runs it on the host at a small size (`--frames 8 --size
 160x120 --voxel 0.02`), for rehearsal: its seconds are the CPU's.
@@ -95,7 +99,7 @@ def main() -> int:
     from intrinsic3d_torch.refine import intrinsic3d
     from intrinsic3d_torch.refine import optimizer as opt
     from intrinsic3d_torch.refine.assembly import LevelTopology
-    from intrinsic3d_torch.refine.device_assembly import level_static_host
+    from intrinsic3d_torch.refine.device_assembly import build_level_static, level_static_host
     from intrinsic3d_torch.synthetic import (
         PIPELINE_CG_ITERS,
         PIPELINE_DATASET,
@@ -182,6 +186,17 @@ def main() -> int:
         topo = stages["topology"].pop("value")
         stages["statics"] = stage_convoy(lambda: level_static_host(layout, g, topo, None), op, idle_median)
         stages["statics"].pop("value")
+        if cuda:
+            # what a single-device level on the card builds instead, on the
+            # main thread after the join: the statics from the layout
+            # (upload, memset and launches; the second of two calls)
+            zero_sh = np.zeros((g.num_voxels, 9), np.float32)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build_level_static(layout, g, None, zero_sh, dev)
+                torch.cuda.synchronize()
+                rec["card_statics_s"] = time.perf_counter() - t0
         if lv is not levels[-1]:
             stages["upsample_skeleton"] = stage_convoy(lambda: alg._upsample_skeleton(g), op, idle_median)
             child = stages["upsample_skeleton"].pop("value")[1]
@@ -200,7 +215,8 @@ def main() -> int:
             stages["upsample_prep"].pop("value")
         rec["blocks"] = layout.num_blocks
         out["levels"].append(rec)
-        print(f"level {lv['tag']}: {grid.num_voxels} voxels, {layout.num_blocks} blocks", flush=True)
+        print(f"level {lv['tag']}: {grid.num_voxels} voxels, {layout.num_blocks} blocks"
+              + (f"; statics built on the card in {rec['card_statics_s']:.4f}s" if cuda else ""), flush=True)
         for name, st in stages.items():
             print(f"  {name}: {st['seconds']:.4f}s on the thread; main thread {st['ops']} ops, median "
                   f"{st['op_median_us']:.2f} us, max {st['op_max_ms']:.3f} ms, convoy {st['convoy_s']:.4f}s "
