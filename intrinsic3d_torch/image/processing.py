@@ -87,7 +87,8 @@ def resize_depth(input_cam: Camera, depth: torch.Tensor, output_cam: Camera) -> 
     """Reproject depth `[..., H, W]` from the depth camera into the color
     camera's pixel grid (``processing.cpp:129-181``) by bilinear lookup along
     each output pixel's ray; zero stays zero, and an output pixel whose
-    rounded source pixel lies outside the input is zero."""
+    rounded source pixel lies outside the input is zero. The result is
+    contiguous, as the card's samplers take their depth stacks."""
     if tuple(depth.shape[-2:]) == (output_cam.height, output_cam.width):
         return depth
     h, w = output_cam.height, output_cam.width
@@ -100,8 +101,8 @@ def resize_depth(input_cam: Camera, depth: torch.Tensor, output_cam: Camera) -> 
     inside = (pxi >= 0) & (pyi >= 0) & (pxi < depth.shape[-1]) & (pyi < depth.shape[-2])
     lead = depth.shape[:-2]
     frames = depth.reshape(-1, depth.shape[-2], depth.shape[-1]).permute(1, 2, 0)  # [H, W, F]
-    d = bilinear(frames, px, py).permute(2, 0, 1).reshape(*lead, h, w)
-    return torch.where(inside, d, torch.zeros_like(d))
+    d = torch.where(inside[..., None], bilinear(frames, px, py), 0.0)  # [h, w, F]
+    return d.permute(2, 0, 1).reshape(*lead, h, w).contiguous()
 
 
 def erode_discontinuities(depth: torch.Tensor, window_size=2, max_depth_diff=0.5) -> torch.Tensor:

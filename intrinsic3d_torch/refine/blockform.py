@@ -38,6 +38,7 @@ the tests and of `chip_smoke.py`.
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -65,6 +66,17 @@ _RING6 = _PLUS + ((-1, 0, 0), (0, -1, 0), (0, 0, -1))
 # chunk: "fused" through the E_g kernel, "eager" through `eg_core` (and, to
 # linearize, autograd). `OptimizeStats` keeps a level's difference.
 EG_PASSES: Dict[str, int] = {"fused": 0, "eager": 0}
+
+# depth pixels the level planner's min/max mips (`_depth_interval_mips`)
+# scanned, counted on the thread that scanned them: a level plans on its
+# `LevelPrep` thread or on its own (`OptimizeStats.plan_depth_px`)
+_SCANNED = threading.local()
+
+
+def depth_pixels_scanned() -> int:
+    """Depth pixels `_depth_interval_mips` has scanned on the calling
+    thread so far."""
+    return getattr(_SCANNED, "pixels", 0)
 
 
 class BlockAssembly(NamedTuple):
@@ -831,23 +843,30 @@ def _depth_interval_mips(depth: np.ndarray):
     """Conservative min/max mip pyramid of a depth map (invalid = 0 pixels
     carry +inf/-inf so they never shrink the interval). Level l cell (i, j)
     bounds the valid depths of pixels [i·2^l, (i+1)·2^l) × [j·2^l, ...)."""
+    _SCANNED.pixels = depth_pixels_scanned() + int(depth.size)
     valid = depth > 0.0
     dmin = np.where(valid, depth, np.inf).astype(np.float64)
     dmax = np.where(valid, depth, -np.inf).astype(np.float64)
     mips = [(dmin, dmax)]
     while max(dmin.shape) > 1:
-        h, w = dmin.shape
-        ph, pw = (h + 1) // 2 * 2, (w + 1) // 2 * 2
-
-        def pool(a, f, fill):
-            p = np.full((ph, pw), fill, a.dtype)
-            p[:h, :w] = a
-            return f(f(p.reshape(ph // 2, 2, pw // 2, 2), axis=3), axis=1)
-
-        dmin = pool(dmin, np.min, np.inf)
-        dmax = pool(dmax, np.max, -np.inf)
+        dmin = _pool2(dmin, np.minimum, np.inf)
+        dmax = _pool2(dmax, np.maximum, -np.inf)
         mips.append((dmin, dmax))
     return mips
+
+
+def _pool2(a: np.ndarray, f, fill: float) -> np.ndarray:
+    """2×2 pooling of `a` by the elementwise `f` (`np.minimum`,
+    `np.maximum`) over its four strided quarters, an odd last row or column
+    padded with `fill`. (A reduction over reshaped 2-wide axes gives the
+    same cells at several times the cost: 119 against 26 ms a 1296×968 map
+    on one core of an Intel Xeon.)"""
+    h, w = a.shape
+    if h % 2 or w % 2:
+        p = np.full((h + h % 2, w + w % 2), fill, a.dtype)
+        p[:h, :w] = a
+        a = p
+    return f(f(a[0::2, 0::2], a[1::2, 0::2]), f(a[0::2, 1::2], a[1::2, 1::2]))
 
 
 def _footprint_depth_interval(mips, u0, u1, v0, v1):

@@ -82,7 +82,9 @@ class Intrinsic3D:
     a phase's seconds are the host's, and its device side is read from a
     profiler's trace, inside the span. With `prefetch`, the background
     preps' own thread seconds are recorded too, under `prefetch[p*v*]` (the
-    JAX package's name) and `upsample_prep[g*]`."""
+    JAX package's name) and `upsample_prep[g*]`. Where the colour camera's
+    image size differs from the depth camera's, the depth reprojection to
+    the colour camera is the child span `pyramids.reproject`."""
 
     def __init__(
         self,
@@ -144,7 +146,11 @@ class Intrinsic3D:
             ).astype(np.float32)  # [K, 6] world→cam
             dev = self.device
             colors = torch.as_tensor(colors_np, device=dev)
-            depths = resize_depth(sensor.depth_cam, torch.as_tensor(depths_np, device=dev), cam)
+            depths = torch.as_tensor(depths_np, device=dev)
+            if tuple(depths.shape[-2:]) != (cam.height, cam.width):
+                # a colour camera above the depth camera: depth reprojected to it
+                with span("pyramids.reproject"):
+                    depths = resize_depth(sensor.depth_cam, depths, cam)
             self.depths_lvl = [depths]
             self.intens_lvl = [rgb_intensity(colors)]
             for _ in range(1, cfg.num_rgbd_levels):

@@ -48,6 +48,7 @@ from intrinsic3d_torch.refine.blockform import (
     EG_PASSES,
     bucket_ladder_down,
     build_frame_buckets,
+    depth_pixels_scanned,
     layout_plans,
     params_from_block,
     table_to_dense,
@@ -473,7 +474,8 @@ class LevelPrep(HostPrep):
     to numpy; `depths_host` is the level's depth maps already on the host
     and `budget` a number (`level_budget`), so the thread calls nothing of
     CUDA. Its products are numpy arrays and host objects: `layout`, `plan`,
-    `topo` and `static` (None where the prep builds no host statics)."""
+    `topo` and `static` (None where the prep builds no host statics), and
+    the depth pixels its plan scanned, `depth_px`."""
 
     def __init__(
         self,
@@ -501,6 +503,7 @@ class LevelPrep(HostPrep):
         h, w = int(depths_host.shape[1]), int(depths_host.shape[2])
         self.inputs = plan_inputs(params, depths_host, w, h, rgbd_level)
         self.plan = None  # (bmap [K, NBc] int32 or None, reason, eg_chunks)
+        self.depth_px = 0
         self.static = None  # LevelStatic of numpy arrays, zero SH
         self._cfg = cfg
         self._thres_shell = float(thres_shell)
@@ -515,8 +518,10 @@ class LevelPrep(HostPrep):
         try:
             if self.layout is None:
                 self.layout = BlockLayout.build(grid, blocks_multiple=self._blocks_multiple)
+            scanned = depth_pixels_scanned()
             self.plan = _plan_level(self.layout, self.inputs, self._cfg, grid.voxel_size, self._thres_shell,
                                     self.budget)
+            self.depth_px = depth_pixels_scanned() - scanned
         finally:
             if tables is not None:
                 tables.wait()
@@ -549,8 +554,10 @@ class OptimizeStats:
     from its first outer step to its last (`timer.HOST_READS`, every site;
     the flat table's `.cpu()` pulls of the intrinsics are not counted), its
     E_g passes (`blockform.EG_PASSES`: one a frame chunk of a linearization
-    or an acceptance cost, through the E_g kernel or eager) and, on the
-    card, its peak allocated bytes."""
+    or an acceptance cost, through the E_g kernel or eager), the depth
+    pixels its plans' depth culling scanned (`plan_depth_px`: the level's
+    depth maps once a frame-bucket pass, on the prep's thread or its own)
+    and, on the card, its peak allocated bytes."""
 
     costs_before: list
     costs_after: list
@@ -567,6 +574,7 @@ class OptimizeStats:
     host_reads: int = 0
     eg_fused: int = 0
     eg_eager: int = 0
+    plan_depth_px: int = 0
     peak_bytes: int = 0
     brick_rows: int = 0  # under a mesh: the rank's block rows m
     halo_rows: tuple = ()  # under a mesh: rows exchanged per active mesh shift
@@ -730,7 +738,10 @@ def optimize_level(
         if inputs is None:
             depths_host = depths_level.cpu().numpy() if cfg.occlusion_distance > 0.0 else None
             inputs = plan_inputs(params, depths_host, w, h, rgbd_level)
-        return _plan_level(layout, inputs, cfg, grid.voxel_size, thres_shell, at_budget)
+        scanned = depth_pixels_scanned()
+        out = _plan_level(layout, inputs, cfg, grid.voxel_size, thres_shell, at_budget)
+        stats.plan_depth_px += depth_pixels_scanned() - scanned
+        return out
 
     def record_plan(fb, reason, eg_chunks):
         stats.reason = reason
@@ -754,6 +765,7 @@ def optimize_level(
                 raise ValueError("the prep's layout is not the mesh context's")
             layout, budget, inputs = prep.layout, prep.budget, prep.inputs
             stats.prefetch_seconds = prep.seconds
+            stats.plan_depth_px = prep.depth_px
             record_phase(f"prefetch[{tag}]", prep.seconds)
         elif ctx is not None:
             layout = ctx.layout
